@@ -19,12 +19,31 @@ result line:
    path, to 1e-9 relative;
 6. the main path: ``run_instationary_pnp_from_pb`` on ``pore_case(100, 55)``
    (4,801 nodes, the dense tier at full size): PB bootstrap, then 10
-   presolved steps, with every kernel launch counted.
+   presolved steps, with every kernel launch counted;
+7. block-RAS parity: ``pore_case(30, 17)`` forced onto the block-RAS tier,
+   5 presolved steps with the factor refreshed every 4, CUDA against CPU,
+   once with the mid-size Poisson inverse and once with the two-level RAS
+   Poisson: iteration counts within one, fields and currents to 1e-9;
+8. the block-RAS main path: ``run_instationary_pnp_from_pb`` on
+   ``pore_case(160, 88)`` (12,097 nodes, 23,552 triangles), 8 presolved
+   steps (two refresh windows), with every kernel launch counted;
+9. both kernels at the shapes that run gave them, on inputs built from its
+   system: kernel 1 against its plain version on the (96, 369, 369)
+   species RAS local batch at the presolved potential and on the
+   (1, 12097, 12097) constant Poisson matrix of the mid-size tier, kernel
+   2 at E = 23,552;
+10. a per-phase breakdown on the run's final state (species factor,
+    species stages on a reused factor, Poisson re-solve), a
+    ``torch.profiler`` trace of one factor step and one reuse step
+    (summarised, and written under ``chip_smoke_out/block_ras/``), and the
+    two-level RAS Poisson tier on the same state against the mid-size tier.
 
 The next-to-last line is ``{"kernels": [...]}``: per kernel its launches
-in phase 6 and the error and times measured in phases 3-4. The last line is
-``{"ok": true, "device": {...}}``. Needs a CUDA device and ``nvcc``; writes
-the run's outputs under ``chip_smoke_out/`` (gitignored).
+in phase 6 (and in phase 8 as ``launches_block_ras``) and the error and
+times measured in phases 3-4 (and 9 under ``block_ras_shape`` and
+``poisson_shape``). The last line is ``{"ok": true, "device": {...}}``.
+Needs a CUDA device and ``nvcc``; writes the runs' outputs under
+``chip_smoke_out/`` (gitignored).
 """
 
 from __future__ import annotations
@@ -39,6 +58,18 @@ import traceback
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 MAIN_STEPS = 10
+# the block-RAS tier at full size: 12,097 nodes, 23,552 triangles; blocks
+# of 256 give K = 48 local sets of L = 369 dofs
+RAS_CASE = (160, 88)
+RAS_KW = dict(ras_block_size=256)
+RAS_SHAPE = (12097, 23552, 48, 369)       # nodes, triangles, K, L
+RAS_STEPS = 8
+RAS_REFRESH = 4
+PARITY_STEPS = 5
+# the mid-size and two-level Poisson tiers solve to 1e-10 relative
+# residual; their solutions agree to 1e-8 (the reference's cross-tier
+# bound, tests/test_block_ras.py:279)
+TIER_REL_TOL = 1e-8
 # kernel 1 against its plain version: both run the same IEEE f32 operations
 # in the same order (0 expected); the bound leaves room for a rounding
 # difference amplified by the stage matrices' conditioning
@@ -77,6 +108,18 @@ def cuda_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed(torch, fn):
+    """One call of ``fn`` on the device clock: (its result, ms)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def nvidia_smi() -> str:
@@ -123,6 +166,249 @@ def gj_checks(torch, K, contraction_ok, dev):
           and err <= GJ_REL_TOL, "gj_inverse permuted case")
 
 
+def ras_parity(torch, W, pore_case, dev) -> None:
+    """Phase 7: the block-RAS tier on the card against the CPU, in both
+    Poisson tiers."""
+    sys_s, space_s = pore_case(30, 17)
+    for tier, pit in (("mid-size inverse", 49152), ("two-level RAS", 0)):
+        run = lambda d: W.run_instationary_pnp_from_pb(
+            sys_s, space_s, n_steps=PARITY_STEPS, presolve_potential=True,
+            dense_poisson_threshold=0, ras_block_size=64,
+            ras_refresh_every=RAS_REFRESH, poisson_inv_threshold=pit,
+            device=d)
+        g, c = run(dev), run("cpu")
+        errs = {n: rel_err(getattr(g, n).cpu(), getattr(c, n))
+                for n in ("phi", "cp", "cm")}
+        cur = max(rel_err(torch.tensor(a), torch.tensor(b))
+                  for (_, *x), (_, *y) in zip(g.current_history,
+                                              c.current_history)
+                  for a, b in zip(x, y))
+        counts = {d: (r.species_iterations, r.poisson_iterations)
+                  for d, r in (("cuda", g), ("cpu", c))}
+        print(f"[block-RAS parity] pore_case(30, 17), {tier}, "
+              f"{PARITY_STEPS} presolved steps, CUDA vs CPU: rel err phi "
+              f"{errs['phi']:.3e} cp {errs['cp']:.3e} cm {errs['cm']:.3e} "
+              f"currents {cur:.3e} (tol {SLICE_REL_TOL:g}); species its / "
+              f"Poisson its per step: cuda {counts['cuda']} cpu "
+              f"{counts['cpu']}", flush=True)
+        check(g.system.poisson_tier == c.system.poisson_tier
+              == ("inverse" if pit else "ras"), f"{tier}: Poisson tier")
+        # a count may differ by one where a residual lands on its target:
+        # the assembly sums with atomics on the card, so the f32 factors'
+        # inputs differ in their last bits (measured: the mid-size tier's
+        # 1e-10 Poisson refinement took 2 passes on the card, 3 on the CPU,
+        # at one step of five)
+        diffs = [abs(a - b) for xs, ys in zip(counts["cuda"], counts["cpu"])
+                 for a, b in zip(xs, ys)]
+        if any(diffs):
+            print(f"[block-RAS parity] {tier}: iteration counts differ "
+                  f"between CUDA and CPU at {sum(map(bool, diffs))} of "
+                  f"{len(diffs)} solves")
+        check(max(diffs) <= 1, f"{tier}: iteration counts differ by more "
+              "than one between CUDA and CPU")
+        check(max(*errs.values(), cur) <= SLICE_REL_TOL,
+              f"block-RAS parity, {tier}")
+
+
+def ras_main(torch, K, W, direct, pore_case, dev):
+    """Phase 8: the block-RAS main path at full size, with every kernel
+    launch counted. Returns the run's result and the launch counts."""
+    nodes, tris, n_blocks, L = RAS_SHAPE
+    sys_r, space_r = pore_case(*RAS_CASE)
+    out_dir = os.path.join(REPO, "chip_smoke_out", "block_ras")
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_launch_counts()
+    direct.probe_failures["count"] = 0
+    res = W.run_instationary_pnp_from_pb(
+        sys_r, space_r, n_steps=RAS_STEPS, presolve_potential=True,
+        output_dir=out_dir, ras_refresh_every=RAS_REFRESH, device=dev,
+        **RAS_KW)
+    counts = dict(K.launches)
+    failures = direct.probe_failures["count"]
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    system = res.system
+    ctx = system.block_context
+    finite = all(tuple(v.shape) == (nodes,) and bool(torch.isfinite(v).all())
+                 for v in (res.phi, res.cp, res.cm))
+    with open(os.path.join(out_dir, "current.dat")) as f:
+        rows = [line.split() for line in f if line.strip()]
+    print(f"[block-RAS main] pore_case{RAS_CASE}: {nodes} dofs, {tris} "
+          f"triangles; factor kind {system.factor_kind}, Poisson tier "
+          f"{system.poisson_tier}, K {ctx.K} B {ctx.B} L {ctx.L}")
+    print(f"[block-RAS main] PB Newton iterations "
+          f"{res.pb_newton_iterations}, phase A {1e3 * res.pb_seconds:.1f} "
+          f"ms, setup (A-C) {1e3 * res.setup_seconds:.1f} ms, Poisson "
+          f"setup (f32 assembly, Gauss-Jordan inverse, probe) "
+          f"{1e3 * res.poisson_setup_seconds:.1f} ms")
+    for i, (ms, ks, kp, fresh) in enumerate(zip(
+            res.step_ms, res.species_iterations, res.poisson_iterations,
+            res.factor_rebuilt)):
+        print(f"[block-RAS main] step {i} {'factor' if fresh else 'reuse'}"
+              f" {ms:.2f} ms, species its {ks}, Poisson refinements {kp}")
+    print(f"[block-RAS main] launches {counts}, probe failures {failures}, "
+          f"peak memory {peak:.2f} GiB", flush=True)
+    check((system.factor_kind, system.poisson_tier) == ("ras", "inverse")
+          and (ctx.K, ctx.L) == (n_blocks, L), "block-RAS tier not taken")
+    check(finite, "non-finite or misshapen final state")
+    check(all(math.isfinite(v) for _, a, b in res.current_history
+              for v in (*a, *b)), "non-finite currents")
+    check(len(res.current_history) == RAS_STEPS and len(rows) == RAS_STEPS
+          and all(len(r) == 1 + 2 * sys_r.n_surfaces for r in rows),
+          "current.dat rows")
+    check(res.factor_rebuilt == [i % RAS_REFRESH == 0
+                                 for i in range(RAS_STEPS)],
+          f"factor refresh schedule {res.factor_rebuilt}")
+    check(failures == 0, f"{failures} contraction-probe failures")
+    for name, n in counts.items():
+        check(n > 0, f"kernel {name} was not launched on the block-RAS path")
+    return res, counts
+
+
+def ras_kernel_checks(torch, K, direct, FA, V, make_scalar_context, system,
+                      dev) -> dict:
+    """Phase 9: both kernels at the shapes the block-RAS main path gave
+    them, on inputs built from its system: kernel 1 on the (96, 369, 369)
+    species RAS local batch at the presolved potential and on the
+    (1, 12097, 12097) constant Poisson matrix of the mid-size tier, kernel
+    2 at E = 23,552. Each version runs on the same input tensor: the
+    assembly sums with atomics, so a rebuilt input could differ in its
+    last bits."""
+    nodes, tris, n_blocks, L = RAS_SHAPE
+    sys_r, space_r = system.sys, system.space
+    uphi1, _ = system.poisson_solve(system.uphi0, system.ucp0, system.ucm0)
+    A = system.species_local_f32(uphi1)
+    check(tuple(A.shape) == (2, n_blocks, L, L), f"RAS batch {A.shape}")
+    A = A.reshape(2 * n_blocks, L, L)
+    X_k = K.gj_inverse(A)
+    X_p = K.gj_inverse_plain(A)
+    err = float((X_k - X_p).abs().max())
+    rel = rel_err(X_k, X_p)
+    ok = direct.contraction_ok(A, X_k)
+    del X_k, X_p
+    gj_ms = cuda_ms(torch, lambda: K.gj_inverse(A), 5)
+    gj_plain_ms = cuda_ms(torch, lambda: K.gj_inverse_plain(A), 3)
+    print(f"[kernel gj_inverse, RAS batch] {tuple(A.shape)} species local "
+          f"stage batch: max abs err vs plain {err:.3e} (rel {rel:.3e}, tol "
+          f"{GJ_REL_TOL:g}), contraction_ok {ok}; kernel {gj_ms:.3f} ms, "
+          f"plain {gj_plain_ms:.3f} ms", flush=True)
+    check(ok and rel <= GJ_REL_TOL, "gj_inverse on the RAS batch")
+    del A
+
+    # the mid-size tier's constant Poisson matrix, assembled as the driver
+    # assembles it; one timed call of each version (seconds each)
+    ctx = make_scalar_context(sys_r, space_r, component=0, quad_order=3,
+                              device=dev)
+    vt = ctx.vt
+    A_el = V.poisson_jacobian_el(vt, sys_r.cylindrical, sys_r.pi)
+    P32 = FA.dense_constrained_matrix(A_el.to(torch.float32), vt.dofmap,
+                                      nodes, ctx.free)[None]
+    X_k, gjp_ms = timed(torch, lambda: K.gj_inverse(P32))
+    X_p, gjp_plain_ms = timed(torch, lambda: K.gj_inverse_plain(P32))
+    p_err = float((X_k - X_p).abs().max())
+    p_rel = rel_err(X_k, X_p)
+    p_ok = direct.contraction_ok(P32, X_k)
+    del X_k, X_p, P32
+    print(f"[kernel gj_inverse, Poisson] (1, {nodes}, {nodes}) constant "
+          f"Poisson matrix: max abs err vs plain {p_err:.3e} (rel "
+          f"{p_rel:.3e}, tol {GJ_REL_TOL:g}), contraction_ok {p_ok}; kernel "
+          f"{gjp_ms:.1f} ms, plain {gjp_plain_ms:.1f} ms", flush=True)
+    check(p_ok and p_rel <= GJ_REL_TOL, "gj_inverse on the Poisson matrix")
+
+    args = (system.pb[vt.dofmap], vt.shape, vt.gradphi, vt.qw, vt.qy,
+            sys_r.l_b, sys_r.c0, sys_r.cylindrical, sys_r.pi)
+    r_k, A_k = K.pb_residual_jacobian(*args)
+    r_p, A_p = K.pb_residual_jacobian_plain(*args)
+    pb_err = max(float((r_k - r_p).abs().max()),
+                 float((A_k - A_p).abs().max()))
+    pb_rel = max(rel_err(r_k, r_p), rel_err(A_k, A_p))
+    pb_ms = cuda_ms(torch, lambda: K.pb_residual_jacobian(*args), 50)
+    pb_plain_ms = cuda_ms(torch, lambda: K.pb_residual_jacobian_plain(*args),
+                          50)
+    E = vt.num_elements
+    print(f"[kernel pb_residual_jacobian] E={E} f64: max abs err vs plain "
+          f"{pb_err:.3e} (rel {pb_rel:.3e}, tol {PB_REL_TOL:g}); kernel "
+          f"{pb_ms:.4f} ms, plain {pb_plain_ms:.4f} ms", flush=True)
+    check(E == tris and pb_rel <= PB_REL_TOL, "pb_residual_jacobian at E "
+          f"= {E}")
+    return {"gj": {"shape": [2 * n_blocks, L, L], "max_abs_err": err,
+                   "ms": gj_ms, "plain_ms": gj_plain_ms},
+            "gj_poisson": {"shape": [1, nodes, nodes], "max_abs_err": p_err,
+                           "ms": gjp_ms, "plain_ms": gjp_plain_ms},
+            "pb": {"E": E, "max_abs_err": pb_err, "ms": pb_ms,
+                   "plain_ms": pb_plain_ms}}
+
+
+def trace_summary(torch, prof, wall_s: float, label: str) -> None:
+    """Device kernel time, kernel count and the costliest kernels of one
+    traced step."""
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    n = sum(e.count for e in kern)
+    print(f"[block-RAS trace] {label} step: wall {1e3 * wall_s:.2f} ms "
+          f"(profiled), device kernel time {dev_ms:.2f} ms "
+          f"({100 * dev_ms / (1e3 * wall_s):.1f} % busy), {n} kernels")
+    for e in sorted(kern, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:6]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
+              f"{e.key[:72]}")
+    sys.stdout.flush()
+
+
+def ras_breakdown(torch, W, PhaseTimer, maybe_trace, res, dev) -> None:
+    """Phase 10: the per-phase breakdown of the block-RAS step on the main
+    run's final state, a profiler trace of one factor step and one reuse
+    step, and the two-level RAS Poisson tier against the mid-size tier on
+    the same state."""
+    system = res.system
+    # bench.run_scaled's form; every piece already ran in the main run,
+    # so nothing is cold
+    timer = PhaseTimer()
+    uphi, ucp, ucm = res.phi, res.cp, res.cm
+    with timer.phase("species_factor", sync=dev):
+        factor = system.species_factor(uphi)
+    with timer.phase("species_step_reuse", sync=dev):
+        ucp2, ucm2, sp_its = system.species_step_reuse(factor, uphi, ucp,
+                                                       ucm)
+    with timer.phase("poisson_solve", sync=dev):
+        uphi2, po_its = system.poisson_solve(uphi, ucp2, ucm2)
+    fa, sp, po = (timer.ms(n) for n in ("species_factor",
+                                        "species_step_reuse",
+                                        "poisson_solve"))
+    print(f"[block-RAS breakdown] species_factor {fa:.2f} ms, "
+          f"species_step_reuse {sp:.2f} ms ({sp_its} its), poisson_solve "
+          f"{po:.2f} ms ({po_its} refinements), amortized step (species + "
+          f"Poisson + factor / {RAS_REFRESH}) {sp + po + fa / RAS_REFRESH:.2f}"
+          " ms", flush=True)
+
+    trace_root = os.path.join(REPO, "chip_smoke_out", "block_ras")
+    for label, fresh in (("factor", True), ("reuse", False)):
+        with maybe_trace(os.path.join(trace_root, f"trace_{label}")) as prof:
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            f = system.species_factor(uphi) if fresh else factor
+            c2 = system.species_step_reuse(f, uphi, ucp, ucm)
+            system.poisson_solve(uphi, c2[0], c2[1])
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+        trace_summary(torch, prof, wall, label)
+
+    # the two-level RAS Poisson tier, PB field carried over (no phase A)
+    two = W.build_pnp_system(system.sys, system.space, pb_field=system.pb,
+                             poisson_inv_threshold=0, device=dev, **RAS_KW)
+    check(two.poisson_tier == "ras" and two.pb_newton_iterations == 0,
+          "two-level RAS Poisson system")
+    two.poisson_solve(uphi, ucp2, ucm2)
+    with timer.phase("poisson_solve_two_level", sync=dev):
+        uphi_2l, its_2l = two.poisson_solve(uphi, ucp2, ucm2)
+    tier_err = rel_err(uphi_2l, uphi2)
+    print(f"[block-RAS breakdown] two-level RAS poisson_solve "
+          f"{timer.ms('poisson_solve_two_level'):.2f} ms ({its_2l} "
+          f"BiCGSTAB its); against the mid-size tier rel err {tier_err:.3e} "
+          f"(tol {TIER_REL_TOL:g})", flush=True)
+    check(tier_err <= TIER_REL_TOL, "Poisson tiers disagree")
+
+
 def main() -> int:
     import torch
 
@@ -132,9 +418,12 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     try:
+        from pnp_tpu_torch.fem import assembly as FA
         from pnp_tpu_torch.operators import kernels as K
+        from pnp_tpu_torch.operators import volume as V
         from pnp_tpu_torch.problems import pore_case
         from pnp_tpu_torch.solvers import direct
+        from pnp_tpu_torch.utils.profiling import PhaseTimer, maybe_trace
         from pnp_tpu_torch.workloads.common import make_scalar_context
         from pnp_tpu_torch.workloads import instationary_pnp_from_pb as W
     except ImportError as e:
@@ -244,7 +533,7 @@ def main() -> int:
           f"{1e3 * res.pb_seconds:.1f} ms, setup (A-C) "
           f"{1e3 * res.setup_seconds:.1f} ms")
     print("[main] step ms " + " ".join(f"{t:.2f}" for t in res.step_ms))
-    print(f"[main] refinements per step {res.refinements}")
+    print(f"[main] species refinements per step {res.species_iterations}")
     print(f"[main] launches {counts}, probe failures {failures}, peak "
           f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     print(f"[main] last currents t={res.time:g} ip {ip.tolist()} "
@@ -258,6 +547,16 @@ def main() -> int:
     check(failures == 0, f"{failures} contraction-probe failures")
     for name, n in counts.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
+    del res
+    print(f"[dense tier done] {time.perf_counter() - t_all:.1f} s",
+          flush=True)
+
+    # ---- 7-10. the block-RAS tier -------------------------------------------
+    ras_parity(torch, W, pore_case, dev)
+    ras_res, ras_counts = ras_main(torch, K, W, direct, pore_case, dev)
+    ras_k = ras_kernel_checks(torch, K, direct, FA, V, make_scalar_context,
+                              ras_res.system, dev)
+    ras_breakdown(torch, W, PhaseTimer, maybe_trace, ras_res, dev)
     print(f"[done] {time.perf_counter() - t_all:.1f} s")
 
     kernels = [
@@ -265,12 +564,17 @@ def main() -> int:
          "source": "pnp_tpu_torch/csrc/gj_inverse.cu",
          "replaces": "pnp_tpu/operators/pallas_kernels.py:343",
          "launches": counts["gj_inverse"], "max_abs_err": gj_err,
-         "ms": gj_ms, "plain_ms": gj_plain_ms},
+         "ms": gj_ms, "plain_ms": gj_plain_ms,
+         "launches_block_ras": ras_counts["gj_inverse"],
+         "block_ras_shape": ras_k["gj"],
+         "poisson_shape": ras_k["gj_poisson"]},
         {"name": "pb_residual_jacobian", "route": "cuda",
          "source": "pnp_tpu_torch/csrc/pb_element.cu",
          "replaces": "pnp_tpu/operators/pallas_kernels.py:105",
          "launches": counts["pb_residual_jacobian"], "max_abs_err": pb_err,
-         "ms": pb_ms, "plain_ms": pb_plain_ms},
+         "ms": pb_ms, "plain_ms": pb_plain_ms,
+         "launches_block_ras": ras_counts["pb_residual_jacobian"],
+         "block_ras_shape": ras_k["pb"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

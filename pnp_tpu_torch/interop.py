@@ -3,8 +3,11 @@
 The FEM analogue of loading another framework's weights: each function
 takes a ``pnp_tpu`` object (or anything with the same attributes and
 array-likes) and returns the port's counterpart, so both packages compute
-on identical inputs. Nothing here imports ``pnp_tpu`` or ``jax``; arrays
-pass through ``numpy.asarray``.
+on identical inputs: meshes, spaces, tables, fields, and the block-RAS
+pieces (block context, RAS factors with their p1 coarse tables, the
+mid-size Poisson inverse) so a solve can be compared with the
+preconditioner held equal. Nothing here imports ``pnp_tpu`` or ``jax``;
+arrays pass through ``numpy.asarray``.
 """
 
 from __future__ import annotations
@@ -66,3 +69,33 @@ def field(u, device="cpu") -> torch.Tensor:
 def state(phi, cp, cm, device="cpu"):
     """A ``(phi, cp, cm)`` state -> three f64 tensors on ``device``."""
     return field(phi, device), field(cp, device), field(cm, device)
+
+
+def block_context(src, device="cpu"):
+    """``pnp_tpu.solvers.block_ras.BlockContext`` -> the port's."""
+    from .solvers.block_ras import BlockContext
+    return BlockContext(
+        K=int(src.K), B=int(src.B), L=int(src.L),
+        loc2glob=index(src.loc2glob, device),
+        elem_ids=index(src.elem_ids, device),
+        elem_dof_local=index(src.elem_dof_local, device),
+        owner=index(src.owner, device), ndof=int(src.ndof))
+
+
+def p1_coarse(src, device="cpu"):
+    """p1 coarse tables ``(coarse_inv, w3, idx3)`` -> (f32, f64, int64)."""
+    cinv, w3, idx3 = src
+    return (torch.tensor(np.asarray(cinv, np.float32), device=device),
+            f64(w3, device), index(idx3, device))
+
+
+def ras_factor(src, device="cpu"):
+    """A RAS factor: f32 local inverses, or ``(inverses, p1 tables)``."""
+    if isinstance(src, tuple):
+        return (ras_factor(src[0], device), p1_coarse(src[1], device))
+    return torch.tensor(np.asarray(src, np.float32), device=device)
+
+
+def poisson_inverse(src, device="cpu"):
+    """The mid-size tier's (1, N, N) f32 Poisson inverse."""
+    return torch.tensor(np.asarray(src, np.float32), device=device)

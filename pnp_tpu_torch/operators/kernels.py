@@ -10,8 +10,9 @@ kernels there become CUDA C++ kernels in ``pnp_tpu_torch/csrc/``:
   ``pb_residual_jacobian_pallas``: the fused PB element residual and
   Jacobian.
 
-Build: ``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a
-plain C interface at first use, into ``pnp_tpu_torch/_build/<hash>/``
+Build: at first use one ``nvcc`` per ``csrc/*.cu``, all started together,
+then one link into a shared library with a plain C interface, in
+``pnp_tpu_torch/_build/<hash>/``
 keyed on a hash of the sources and flags, and ``ctypes`` loads it. Nothing
 is built or imported at module import.
 
@@ -39,8 +40,9 @@ from . import volume as V
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 launches = {"gj_inverse": 0, "pb_residual_jacobian": 0}
 
@@ -81,14 +83,31 @@ def build() -> dict:
     log = ""
     if not cached:
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"libpnp_kernels.{os.getpid()}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        (out_dir / "build.log").write_text(log)
-        os.replace(tmp, lib_path)
+        nvcc, pid = _nvcc(), os.getpid()
+        # one nvcc per source, all started together, then one link
+        objs = [out_dir / f"{src.stem}.{pid}.o" for src in sources]
+        tmp = out_dir / f"libpnp_kernels.{pid}.so"
+        try:
+            procs = [subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for src, obj in zip(sources, objs)]
+            outs = [(p.communicate()[0], p.returncode) for p in procs]
+            log = "".join(out for out, _ in outs)
+            if any(rc != 0 for _, rc in outs):
+                raise RuntimeError(f"nvcc failed:\n{log}")
+            proc = subprocess.run(
+                [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                 *map(str, objs)], capture_output=True, text=True)
+            log += proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc link failed ({proc.returncode}):\n{log}")
+            (out_dir / "build.log").write_text(log)
+            os.replace(tmp, lib_path)
+        finally:
+            for path in (*objs, tmp):
+                path.unlink(missing_ok=True)
     if _lib is None or _lib._name != str(lib_path):
         _lib = _bind(ctypes.CDLL(str(lib_path)))
     return {"path": str(lib_path), "seconds": time.perf_counter() - t0,

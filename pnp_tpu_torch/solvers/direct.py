@@ -1,15 +1,20 @@
 """Batched dense direct solves: f32 explicit inverses + f64 refinement
-(port of the dense-tier part of ``pnp_tpu.solvers.direct``).
+(port of ``pnp_tpu.solvers.direct``).
 
-The advection-dominated species stage systems are inverted densely in f32
-(:func:`batched_inv_f32`, the hand-written Gauss-Jordan kernel on CUDA) and
-solved to f64 accuracy by iterative refinement against the exact f64
-element-block operator:
+The advection-dominated species stage systems, the block-RAS local
+matrices and the constant mid-size Poisson operator are inverted densely
+in f32 (:func:`batched_inv_f32`, the hand-written Gauss-Jordan kernel on
+CUDA) and solved to f64 accuracy by iterative refinement against the exact
+f64 element-block operator:
 
     x_{k+1} = x_k + X_f32 (b - A_f64 x_k)
 
 Each refinement step cuts the error by about kappa(A) * eps_f32. The
 refinement loop checks its residual on the host once per step.
+:func:`make_lu_refine_solver` is the same loop on f32 LU factors
+(``torch.linalg.lu_factor``; the reference uses ``jax.scipy`` LU there).
+The reference's very-large Poisson tier (``inv_f32_setup_large`` and the
+scaled ``(X_eq, s)`` inverse) runs only on a TPU and is not ported yet.
 """
 
 from __future__ import annotations
@@ -34,11 +39,10 @@ def probe_vectors(n: int, batch_shape=(), device="cpu"):
     return torch.stack([smooth, rough])
 
 
-def contraction_ok(A32, X) -> bool:
-    """Two-step refinement contraction verdict for an (S, N, N) inverse:
-    on b = A v for both probe vectors, two refinement steps must cut the
-    residual to <= 0.25 ||b||, per matrix and per vector, and X must be
-    finite."""
+def contraction_verdicts(A32, X):
+    """Per-matrix two-step refinement contraction verdicts, (S,) bool: on
+    b = A v for both probe vectors, two refinement steps must cut the
+    residual to <= 0.25 ||b||, per vector, and X must be finite."""
     mv = lambda M, v: torch.einsum("sij,psj->psi", M, v)
     b = mv(A32, probe_vectors(A32.shape[-1], A32.shape[:1], A32.device))
     x1 = mv(X, b)
@@ -46,34 +50,62 @@ def contraction_ok(A32, X) -> bool:
     r2 = r1 - mv(A32, mv(X, r1))
     nb = torch.linalg.vector_norm(b, dim=-1)
     nr2 = torch.linalg.vector_norm(r2, dim=-1)
-    return bool(torch.all(torch.isfinite(nr2)) & torch.all(nr2 <= 0.25 * nb)
-                & torch.all(torch.isfinite(X)))
+    return (torch.all(torch.isfinite(nr2) & (nr2 <= 0.25 * nb), dim=0)
+            & torch.isfinite(X).flatten(1).all(dim=1))
 
 
-def batched_inv_f32(A_dense):
+def contraction_ok(A32, X) -> bool:
+    """Two-step refinement contraction verdict for an (S, N, N) inverse:
+    every matrix passes :func:`contraction_verdicts`. One diverging matrix
+    among S fails the batch."""
+    return bool(contraction_verdicts(A32, X).all())
+
+
+def batched_inv_f32(A_dense, batch_names=("matrix",), batch_shape=None):
     """(S, N, N) -> f32 explicit inverses through :func:`kernels.gj_inverse`
     (the CUDA kernel on a CUDA tensor, its plain version on the CPU),
-    checked by :func:`contraction_ok`. A failed probe raises: the
-    reference's fallback to a library inverse is not carried over."""
+    checked per matrix by :func:`contraction_verdicts`. A failed probe
+    raises, naming the failing matrices by ``batch_names`` over
+    ``batch_shape`` (the flat batch index by default): the reference's
+    fallback to a library inverse is not carried over."""
     A32 = A_dense.to(torch.float32)
     X = K.gj_inverse(A32)
-    if not contraction_ok(A32, X):
+    ok = contraction_verdicts(A32, X)
+    if not bool(ok.all()):
         probe_failures["count"] += 1
+        shape = tuple(batch_shape) if batch_shape else (A32.shape[0],)
+        bad = [dict(zip(batch_names, (int(i) for i in ix)))
+               for ix in zip(*(t.tolist() for t in torch.unravel_index(
+                   torch.nonzero(~ok.cpu())[:, 0], shape)))]
         raise FloatingPointError(
             f"batched_inv_f32: Gauss-Jordan inverse of {tuple(A32.shape)} "
-            "failed the contraction probe")
+            f"failed the contraction probe on {len(bad)} of "
+            f"{A32.shape[0]}: {bad[:8]}")
     return X
+
+
+def inv_f32_setup(A_dense):
+    """Setup-time f32 inverse of a constant operator (the mid-size Poisson
+    tier): :func:`batched_inv_f32`, kernel 1 plus the probe. A failed probe
+    raises; the reference's host-LAPACK fallback is not carried over."""
+    return batched_inv_f32(A_dense)
+
+
+def batched_lu_factor_f32(A_dense):
+    """(S, N, N) -> f32 LU factors ``(LU, pivots)``."""
+    return torch.linalg.lu_factor(A_dense.to(torch.float32))
 
 
 def scaled_inv_apply(Ainv, rk):
     """Preconditioner apply d = X rk in true f32, output in rk's dtype.
 
     The reference's scaled ``(X_eq, s)`` form belongs to its very-large
-    Poisson tier (ROADMAP, block-RAS tier) and is not ported yet."""
+    Poisson tier, which runs only on a TPU and is not ported yet."""
     if isinstance(Ainv, tuple):
         raise NotImplementedError(
-            "scaled (X_eq, s) inverses belong to the block-RAS tier "
-            "(ROADMAP: modules to port, 'Block-RAS tier')")
+            "scaled (X_eq, s) inverses belong to the very-large Poisson "
+            "tier (ROADMAP: modules to port, 'Very-large Poisson tier and "
+            "mid-size species tier')")
     d = torch.einsum("sij,sj->si", Ainv, rk.to(torch.float32))
     return d.to(rk.dtype)
 
@@ -113,3 +145,38 @@ def make_inv_refine_solver(Ainv, A_el, dofmap, ndof: int, free,
     """Closure form of :func:`make_inv_refine_solver_arg`."""
     solve = make_inv_refine_solver_arg(A_el, dofmap, ndof, free, maxrefine)
     return lambda r, reduction: solve(Ainv, r, reduction)
+
+
+def make_lu_refine_solver(lu_piv, A_el, dofmap, ndof: int, free,
+                          maxrefine: int = 40):
+    """Return solve(r, reduction) -> (x, n_refinements).
+
+    ``lu_piv``: f32 LU factors of the batched constrained dense matrices
+    (:func:`batched_lu_factor_f32`); ``A_el``/``free``: the exact f64
+    element blocks and masks for the residuals. ``r`` must be zero on
+    constrained rows. A diverging refinement (non-finite residual) runs to
+    ``maxrefine`` so the caller sees the saturated count."""
+    lu, piv = lu_piv
+    op = FA.make_constrained_operator_batched(A_el, dofmap, ndof, free)
+
+    def lu_apply(rk):
+        d = torch.linalg.lu_solve(lu, piv, rk.to(torch.float32)[..., None])
+        return d[..., 0].to(rk.dtype)
+
+    def solve(r, reduction: float):
+        norm0 = torch.sqrt(torch.sum(r * r, dim=-1, keepdim=True))
+        tol = reduction * torch.clamp_min(norm0, 1e-300)
+        x = lu_apply(r)
+        rk = r - op(x)
+        k = 1
+        while k < maxrefine:
+            nk = torch.sqrt(torch.sum(rk * rk, dim=-1, keepdim=True))
+            diverged = ~torch.all(torch.isfinite(nk))
+            if not bool(torch.any(nk > tol) | diverged):
+                break
+            x = x + lu_apply(rk)
+            rk = r - op(x)
+            k += 1
+        return x, k
+
+    return solve

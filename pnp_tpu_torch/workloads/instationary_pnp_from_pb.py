@@ -1,33 +1,41 @@
 """The production workload: instationary PNP bootstrapped from a PB solve.
 
-Port of ``pnp_tpu.workloads.instationary_pnp_from_pb``, dense tier
-(ndof <= ``dense_poisson_threshold``, one device, uniform tableau
-diagonal). Parity: reference ``instationary_pnp_md``
+Port of ``pnp_tpu.workloads.instationary_pnp_from_pb`` on one device, in
+two tiers. Parity: reference ``instationary_pnp_md``
 (src/instationary_pnp_from_pb_md.hh:112-456). Phases:
 
   A. nonlinear PB Newton solve on the coulomb BC table (workloads/pb.py;
-     element residual and Jacobian from the fused PB kernel)
+     element residual and Jacobian from the fused PB kernel; block-RAS
+     BiCGSTAB above 8,192 dofs)
   B. initial (phi, c+, c-) from the PB solution: phi = phi_PB,
      c+- = c0 exp(-+ phi_PB), Dirichlet dofs from config
-  C. one-time setup: species mass and Poisson stiffness blocks, and the
-     exact affine Poisson form phi* = q + P (cm - cp) from a host-grade
-     f64 inverse of the constant constrained Poisson matrix
+  C. one-time Poisson setup for the constant decoupled operator:
+     * dense tier (ndof <= ``dense_poisson_threshold``): the exact affine
+       form phi* = q + P (cm - cp) from a host-grade f64 inverse;
+     * block-RAS tier, mid-size (ndof <= ``poisson_inv_threshold`` and
+       <= POISSON_INV_MAX_DOFS): one f32 inverse by the Gauss-Jordan
+       kernel, each re-solve an f64-residual refinement to 1e-10;
+     * block-RAS tier above that: two-level RAS (local inverses + the
+       piecewise-linear coarse space), f64 BiCGSTAB to 1e-10.
   D. time loop: both species' Alexander-2 stages solved together as one
-     (2, ndof) batch — f32 stage matrices (P1 drift as one rank-1 matmul)
-     inverted by the Gauss-Jordan kernel, then f64 refinement against the
-     exact element operator — and the Poisson re-solve every
+     (2, ndof) batch. Dense tier: f32 stage matrices inverted by the
+     Gauss-Jordan kernel, then f64 refinement against the exact element
+     operator. Block-RAS tier: BiCGSTAB under RAS with f32 local stage
+     inverses (kernel 1), one factor serving every stage and, in the run
+     loop, ``ras_refresh_every`` steps. Poisson re-solve every
      potentialUpdateFreq; ion flux + output every outputFreq; final
      Poisson solve.
 
 Reference behaviours kept: the species operators carry NO axisymmetric
 weight even in cylindrical runs (src/diffusion_operator.hh:100; PB and
 Poisson do carry it); quadrature orders 3 (PB/Poisson), 2 (species
-spatial), 5 (species mass); dt = tau.
+spatial), 5 (species mass); dt = tau. Above the mid-size bound the port
+takes the two-level RAS Poisson, as the reference does off the TPU.
 
-Not ported yet (ROADMAP): the block-RAS tier above the dense threshold,
-the multi-device mesh, the species Krylov path of non-uniform tableau
-diagonals, and the factor-reuse entry points (``species_factor``,
-``species_step_reuse``, ``fused_step_reuse``).
+Not ported yet (ROADMAP): the multi-device mesh, the species Krylov path
+of non-uniform tableau diagonals and of non-``BCGS_SSORk`` solvers above
+the dense tier, and the TPU-only very-large Poisson and mid-size species
+tiers.
 """
 
 from __future__ import annotations
@@ -51,12 +59,20 @@ from ..timestepping.tableaux import Tableau, alexander2
 from ..postprocess.ionflux import build_ionflux_tables, calc_ion_flux
 from ..io.writers import write_dat, write_vtu, CurrentWriter
 from ..io.checkpoint import save_checkpoint, load_checkpoint
-from ..solvers.direct import batched_inv_f32, make_inv_refine_solver
+from ..solvers import block_ras as BR
+from ..solvers.direct import (batched_inv_f32, inv_f32_setup,
+                              make_inv_refine_solver,
+                              make_inv_refine_solver_arg)
+from ..solvers.krylov import bicgstab
 from .common import make_scalar_context
 from .pb import solve_pb
 
 F32 = torch.float32
 F64 = torch.float64
+
+#: upper bound of the mid-size Poisson tier (its (ndof, ndof) f32 inverse);
+#: above it the block-RAS tier solves Poisson by two-level RAS
+POISSON_INV_MAX_DOFS = 16384
 
 
 def _host(t) -> np.ndarray:
@@ -79,15 +95,32 @@ class PnpSystem:
     uphi0: Any
     ucp0: Any
     ucm0: Any
-    species_step: Callable       # (uphi, ucp, ucm) -> (ucp', ucm', refinements)
-    poisson_solve: Callable      # (uphi, ucp, ucm) -> (uphi', iters)
+    species_step: Callable       # (uphi, ucp, ucm) -> (ucp', ucm', its)
+    # (uphi, ucp, ucm[, phi_pre]) -> (uphi', its); ``phi_pre`` replaces
+    # the system's own ``poisson_pre`` for one call
+    poisson_solve: Callable
     fused_step: Callable         # (uphi, ucp, ucm) -> (uphi', ucp', ucm')
     scan_steps: Callable         # ((uphi, ucp, ucm), n) -> (uphi', ucp', ucm')
     ionflux_tables: Any
     dt: float
-    # (uphi) -> (2, ndof, ndof) f32 constrained stage matrices
+    # factor-amortized species stepping; ``factor_kind`` "dense" (f32
+    # stage inverses) or "ras" (f32 local inverses, with the batched p1
+    # coarse tables when ``species_two_level``)
+    species_factor: Any = None       # (uphi) -> factor
+    species_step_reuse: Any = None   # (factor, uphi, ucp, ucm) -> (...)
+    factor_kind: Any = None
+    fused_step_reuse: Any = None     # (factor, uphi, ucp, ucm) -> state'
+    # dense tier: (uphi) -> (2, ndof, ndof) f32 constrained stage matrices;
+    # block-RAS tier: (uphi) -> (2, K, L, L) f32 local stage matrices
     species_dense_f32: Any = None
+    species_local_f32: Any = None
+    # Poisson setup state: "dense" (P, q) | "inverse" (1, N, N) f32 |
+    # "ras" (local inverses, p1 coarse tables)
+    poisson_tier: str = "dense"
+    poisson_pre: Any = None
+    block_context: Any = None        # block-RAS tier's BlockContext
     pb_seconds: float = 0.0      # phase A wall time (host clock, synced)
+    poisson_setup_seconds: float = 0.0   # phase C's Poisson setup (synced)
 
 
 def build_pnp_system(
@@ -98,14 +131,24 @@ def build_pnp_system(
     pb_field=None,
     dense_poisson_threshold: int = 8192,
     stage_reduction: float = 1e-5,
+    ras_block_size: int = 256,
+    poisson_inv_threshold: int = 49152,
+    species_inv_threshold: int = 0,
+    species_two_level: bool = False,
     device="cpu",
 ) -> PnpSystem:
-    """Build the production pipeline on ``device`` (dense tier).
+    """Build the production pipeline on ``device``.
 
     ``stage_reduction``: relative tolerance of the species stage solves
     (reference 1e-5, src/instationary_pnp_from_pb_md.hh:383-386).
-    ``dense_poisson_threshold``: the dense tier's size bound; above it the
-    reference switches to block-RAS, which is not ported yet.
+    ``dense_poisson_threshold``: the dense tier's size bound; above it
+    (with ``BCGS_SSORk``) the block-RAS tier with blocks of about
+    ``ras_block_size`` dofs. ``poisson_inv_threshold``: the mid-size
+    Poisson inverse serves up to this many dofs (and at most
+    POISSON_INV_MAX_DOFS); 0 forces two-level RAS. ``species_two_level``
+    adds the batched p1 coarse level to the species RAS.
+    ``species_inv_threshold`` > 0 (the reference's TPU-only mid-size
+    species tier) is not ported.
     """
     tab = tableau if tableau is not None else alexander2()
     dt = sys.tau
@@ -115,11 +158,11 @@ def build_pnp_system(
         raise NotImplementedError(
             "multi-device runs are not ported yet "
             "(ROADMAP: modules to port, 'Multi-device')")
-    if ndof > dense_poisson_threshold:
+    if species_inv_threshold > 0:
         raise NotImplementedError(
-            f"{ndof} dofs is above the dense tier ({dense_poisson_threshold});"
-            " the block-RAS tier is not ported yet "
-            "(ROADMAP: modules to port, 'Block-RAS tier')")
+            "the mid-size species inverse tier is not ported yet (ROADMAP: "
+            "modules to port, 'Very-large Poisson tier and mid-size species "
+            "tier')")
     a_tab = [[float(v) for v in row] for row in tab.A]
     b_tab = [[float(v) for v in row] for row in tab.B]
     stages = tab.stages
@@ -132,6 +175,11 @@ def build_pnp_system(
     if sys.linearSolver == "CG_AMG_SSOR":
         raise NotImplementedError(
             "CG_AMG_SSOR is not ported yet (ROADMAP: modules to port, 'AMG')")
+    use_dense = ndof <= dense_poisson_threshold
+    if not use_dense and sys.linearSolver != "BCGS_SSORk":
+        raise NotImplementedError(
+            f"{sys.linearSolver} above the dense tier needs the species "
+            "Krylov path (ROADMAP: modules to port, 'Species Krylov path')")
 
     # ---- Phase A: PB bootstrap ------------------------------------------
     t0 = _time.perf_counter()
@@ -156,7 +204,7 @@ def build_pnp_system(
         f64(C.interpolate_with_pb_fallback(space, sys, c, pb_np), device)
         for c in (0, 1, 2))
 
-    # ---- Phase C: operators + the exact affine Poisson form -------------
+    # ---- Phase C: operators + the Poisson setup --------------------------
     # species orders 2 (spatial) / 5 (mass), raised with the space degree
     vt2 = build_volume_tables(space, max(2, 2 * space.degree), device)
     vt5 = build_volume_tables(space, max(5, 2 * space.degree + 1), device)
@@ -164,32 +212,63 @@ def build_pnp_system(
 
     M_el = V.mass_jacobian_el(vt5, 1.0, False, pi)   # planar (ref behaviour)
     A_phi_el = V.poisson_jacobian_el(vt_phi, sys.cylindrical, pi)
-    A_phi_dense = FA.dense_constrained_matrix(A_phi_el, vt_phi.dofmap, ndof,
+    op_phi = FA.make_constrained_operator(A_phi_el, vt_phi.dofmap, ndof,
+                                          ctx_phi.free)
+    ctx_ras = solve_phi_inv = None
+    t0 = _time.perf_counter()
+    if use_dense:
+        poisson_tier = "dense"
+        A_phi_dense = FA.dense_constrained_matrix(A_phi_el, vt_phi.dofmap,
+                                                  ndof, ctx_phi.free)
+        # charge coupling: the Poisson residual is affine in w = cm - cp,
+        # r = A u + M4 w + flux; M4 dense with Dirichlet rows zeroed
+        M4_el = V.mass_jacobian_el(vt_phi, 4.0 * sys.l_b * pi,
+                                   sys.cylindrical, pi)
+        M4_dense = torch.zeros((ndof, ndof), dtype=F64, device=device)
+        E_phi, n_phi = vt_phi.dofmap.shape
+        M4_dense.index_put_(
+            (vt_phi.dofmap[:, :, None].expand(E_phi, n_phi, n_phi),
+             vt_phi.dofmap[:, None, :].expand(E_phi, n_phi, n_phi)),
+            M4_el, accumulate=True)
+        M4_dense = M4_dense * ctx_phi.free.to(F64)[:, None]
+        u_bc = torch.where(ctx_phi.free, 0.0, ctx_phi.dirichlet)
+        rhs_bc = ctx_phi.constrain(FA.spmv(A_phi_el, u_bc, vt_phi.dofmap,
+                                           ndof) + ctx_phi.flux_vector)
+        # phi* = q + P (cm - cp),  P = -Ainv M4,  q = u_bc - Ainv r(u_bc):
+        # exact for any current phi (the decoupled Poisson operator is
+        # constant). One-time f64 inverse, outside any kernel (as in the
+        # reference).
+        Ainv = torch.linalg.inv(A_phi_dense)
+        poisson_pre = (-(Ainv @ M4_dense), u_bc - Ainv @ rhs_bc)
+        del Ainv, A_phi_dense, M4_dense
+    else:
+        ctx_ras = BR.build_block_context_for_space(space, ras_block_size,
+                                                   device)
+        if ndof <= min(poisson_inv_threshold, POISSON_INV_MAX_DOFS):
+            # mid-size tier: one f32 inverse of the constant operator
+            # (kernel 1 + the probe); every 1e-10 re-solve is an
+            # f64-residual refinement with it
+            poisson_tier = "inverse"
+            A32 = FA.dense_constrained_matrix(A_phi_el.to(F32),
+                                              vt_phi.dofmap, ndof,
                                               ctx_phi.free)
-    # charge coupling: the Poisson residual is affine in w = cm - cp,
-    # r = A u + M4 w + flux; M4 dense with Dirichlet rows zeroed
-    M4_el = V.mass_jacobian_el(vt_phi, 4.0 * sys.l_b * pi, sys.cylindrical,
-                               pi)
-    M4_dense = torch.zeros((ndof, ndof), dtype=F64, device=device)
-    E_phi, n_phi = vt_phi.dofmap.shape
-    M4_dense.index_put_(
-        (vt_phi.dofmap[:, :, None].expand(E_phi, n_phi, n_phi),
-         vt_phi.dofmap[:, None, :].expand(E_phi, n_phi, n_phi)),
-        M4_el, accumulate=True)
-    M4_dense = M4_dense * ctx_phi.free.to(F64)[:, None]
-    u_bc = torch.where(ctx_phi.free, 0.0, ctx_phi.dirichlet)
-    rhs_bc = ctx_phi.constrain(FA.spmv(A_phi_el, u_bc, vt_phi.dofmap, ndof)
-                               + ctx_phi.flux_vector)
-    # phi* = q + P (cm - cp),  P = -Ainv M4,  q = u_bc - Ainv r(u_bc): exact
-    # for any current phi (the decoupled Poisson operator is constant).
-    # One-time f64 inverse, outside any kernel (as in the reference).
-    Ainv = torch.linalg.inv(A_phi_dense)
-    P_phi = -(Ainv @ M4_dense)
-    q_phi = u_bc - Ainv @ rhs_bc
-    del Ainv, A_phi_dense, M4_dense
+            poisson_pre = inv_f32_setup(A32[None])
+            del A32
+            solve_phi_inv = make_inv_refine_solver_arg(
+                A_phi_el[None], vt_phi.dofmap, ndof, ctx_phi.free[None])
+        else:
+            # two-level RAS factors, built once: local inverses + the
+            # piecewise-linear coarse space (3 modes per block)
+            poisson_tier = "ras"
+            poisson_pre = (
+                BR.build_local_inverses(ctx_ras, A_phi_el, ctx_phi.free),
+                BR.build_p1_coarse(ctx_ras, A_phi_el, vt_phi.dofmap,
+                                   ctx_phi.free, space.dof_coords))
+    _sync(device)
+    poisson_setup_seconds = _time.perf_counter() - t0
 
     # ---- species stage matrices ------------------------------------------
-    use_fast_dense = space.degree == 1
+    use_fast_dense = use_dense and space.degree == 1
     if use_fast_dense:
         # P1: grad(phi) and the basis gradients are constant per element,
         # so the drift block is rank-1, A_drift[e,i,j] = u_el[e,i] w_el[e,j]
@@ -221,7 +300,8 @@ def build_pnp_system(
         return torch.einsum("ed,eid->ei", gphi_e, g_el)
 
     def _build_K_pair(uphi_, u_el=None):
-        """Species drift-diffusion element Jacobians for z = +1, -1."""
+        """Species drift-diffusion element Jacobians for z = +1, -1 (the
+        P1 rank-1 form on the dense tier, as the reference)."""
         if use_fast_dense:
             if u_el is None:
                 u_el = _drift_u_el(uphi_)
@@ -231,6 +311,9 @@ def build_pnp_system(
         return torch.stack([
             V.drift_diffusion_jacobian_el(gphi, vt2, +1.0, False, pi),
             V.drift_diffusion_jacobian_el(gphi, vt2, -1.0, False, pi)])
+
+    def _stage_blocks(K_pair):
+        return a01 * M_el[None] + (dt * b01) * K_pair
 
     def _species_dense_f32(uphi_, u_el=None):
         """(2, ndof, ndof) f32 constrained stage matrices at the current
@@ -244,70 +327,161 @@ def build_pnp_system(
             D = U32.T @ W32                                  # (N, N) f32
             return A0m32 + coef_pair[:, None, None] * (
                 fpair32[:, :, None] * fpair32[:, None, :] * D[None])
-        A_stage = a01 * M_el[None] + (dt * b01) * _build_K_pair(uphi_)
         return FA.dense_constrained_matrix_batched(
-            A_stage, vt2.dofmap, ndof, free_pair).to(F32)
+            _stage_blocks(_build_K_pair(uphi_)), vt2.dofmap, ndof,
+            free_pair).to(F32)
 
-    def _species_pair_onestep(K_pair, u_old, factor):
+    def _species_local_f32(uphi_):
+        """(2, K, L, L) f32 constrained local stage matrices (block-RAS)."""
+        return BR.assemble_local_matrices(
+            ctx_ras, _stage_blocks(_build_K_pair(uphi_)), free_pair)
+
+    def _ras_factor(K_pair):
+        """Local stage inverses (kernel 1), plus the batched p1 coarse
+        level when ``species_two_level``."""
+        A_stage = _stage_blocks(K_pair)
+        inv = BR.build_local_inverses(ctx_ras, A_stage, free_pair)
+        if species_two_level:
+            return (inv, BR.build_p1_coarse_batched(
+                ctx_ras, A_stage, vt2.dofmap, free_pair, space.dof_coords))
+        return inv
+
+    def _species_pair_onestep(K_pair, u_old, factor=None, ras_inv=None):
         """All DIRK stages for both species as one batched (2, ndof)
-        system: stage solves to ``stage_reduction`` by inverse-
-        preconditioned f64 refinement (one inverse serves every stage of
-        the uniform diagonal)."""
-        A_stage = a01 * M_el[None] + (dt * b01) * K_pair
-        solve = make_inv_refine_solver(factor, A_stage, vt2.dofmap, ndof,
-                                       free_pair)
+        system. Dense tier (``factor``): inverse-preconditioned f64
+        refinement to ``stage_reduction``, one inverse for every stage of
+        the uniform diagonal. Block-RAS tier (``ras_inv``): f64 BiCGSTAB
+        under RAS (two-level with a (inv, p1) factor)."""
+        A_stage = solve = None
+        if factor is not None:
+            A_stage = _stage_blocks(K_pair)
+            solve = make_inv_refine_solver(factor, A_stage, vt2.dofmap,
+                                           ndof, free_pair)
+
+        def mass_apply(u):
+            ye = torch.einsum("eij,sej->sei", M_el, u[:, vt5.dofmap])
+            out = torch.zeros((2, ndof), dtype=F64, device=device)
+            return out.index_add_(1, vt5.dofmap.reshape(-1),
+                                  ye.reshape(2, -1))
+
+        def alpha_apply(u):
+            return FA.spmv_batched(K_pair, u, vt2.dofmap, ndof)
+
         mass, alpha = {}, {}      # per-level scatters, reused across stages
 
-        def mass_apply(j, levels):
-            if j not in mass:
-                ye = torch.einsum("eij,sej->sei", M_el,
-                                  levels[j][:, vt5.dofmap])
-                out = torch.zeros((2, ndof), dtype=F64, device=device)
-                mass[j] = out.index_add_(1, vt5.dofmap.reshape(-1),
-                                         ye.reshape(2, -1))
-            return mass[j]
-
-        def alpha_apply(j, levels):
-            if j not in alpha:
-                alpha[j] = FA.spmv_batched(K_pair, levels[j], vt2.dofmap,
-                                           ndof)
-            return alpha[j]
+        def cached(cache, apply, j, levels):
+            if j not in cache:
+                cache[j] = apply(levels[j])
+            return cache[j]
 
         levels = [u_old]
-        refinements = 0
+        iters = 0
         for i in range(stages):
+            a_ii, b_ii = a_tab[i][i + 1], b_tab[i][i + 1]
             hist = torch.zeros((2, ndof), dtype=F64, device=device)
             for j in range(i + 1):
                 if a_tab[i][j] != 0.0:
-                    hist = hist + a_tab[i][j] * mass_apply(j, levels)
+                    hist = hist + a_tab[i][j] * cached(mass, mass_apply, j,
+                                                       levels)
                 if b_tab[i][j] != 0.0:
-                    hist = hist + dt * b_tab[i][j] * alpha_apply(j, levels)
+                    hist = hist + dt * b_tab[i][j] * cached(
+                        alpha, alpha_apply, j, levels)
             guess = torch.where(free_pair, levels[-1], g_pair)
-            r = hist + FA.spmv_batched(A_stage, guess, vt2.dofmap, ndof)
+            if solve is not None:
+                # the guess's mass + drift terms share the stage blocks
+                r = hist + FA.spmv_batched(A_stage, guess, vt2.dofmap, ndof)
+                r = torch.where(free_pair, r, 0.0)
+                z, k = solve(r, stage_reduction)
+                levels.append(guess - z)
+                iters += k
+                continue
+            r = (hist + a_ii * mass_apply(guess)
+                 + dt * b_ii * alpha_apply(guess))
             r = torch.where(free_pair, r, 0.0)
-            z, k = solve(r, stage_reduction)
-            levels.append(guess - z)
-            refinements += k
-        return levels[-1], refinements
+            A_el = a_ii * M_el[None] + (dt * b_ii) * K_pair
+            op = FA.make_constrained_operator_batched(A_el, vt2.dofmap, ndof,
+                                                      free_pair)
+            inv_s, p1_s = (ras_inv if isinstance(ras_inv, tuple)
+                           else (ras_inv, None))
+            if p1_s is not None:
+                M_s = BR.make_two_level_precond(ctx_ras, inv_s, None, op,
+                                                free_pair, p1_coarse=p1_s)
+            else:
+                M_s = BR.make_ras_precond(ctx_ras, inv_s, free_pair)
+            res = bicgstab(op, r, torch.zeros_like(r), M_s, stage_reduction,
+                           sys.linearSolverIterations)
+            levels.append(guess - res.x)
+            iters += res.iterations
+        return levels[-1], iters
 
     def species_step(uphi_, ucp_, ucm_):
-        """Fresh stage inverse + both species' DIRK stages."""
-        u_el = _drift_u_el(uphi_) if use_fast_dense else None
-        K_pair = _build_K_pair(uphi_, u_el)
-        factor = batched_inv_f32(_species_dense_f32(uphi_, u_el))
-        out, refinements = _species_pair_onestep(
-            K_pair, torch.stack([ucp_, ucm_]), factor)
-        return out[0], out[1], refinements
+        """Fresh factor (stage inverses or local inverses) + both species'
+        DIRK stages."""
+        u_old = torch.stack([ucp_, ucm_])
+        if use_dense:
+            u_el = _drift_u_el(uphi_) if use_fast_dense else None
+            K_pair = _build_K_pair(uphi_, u_el)
+            factor = batched_inv_f32(_species_dense_f32(uphi_, u_el))
+            out, iters = _species_pair_onestep(K_pair, u_old, factor)
+        else:
+            K_pair = _build_K_pair(uphi_)
+            out, iters = _species_pair_onestep(K_pair, u_old, None,
+                                               _ras_factor(K_pair))
+        return out[0], out[1], iters
 
-    def poisson_solve(uphi_, ucp_, ucm_):
-        """SLP apply at tolerance 1e-10 (reference :349-350), exactly, as
-        the affine form's one matvec."""
-        return q_phi + P_phi @ (ucm_ - ucp_), 1
+    def species_factor(uphi_):
+        """The stage factor at the current potential, reusable across
+        steps while phi drifts: a stale factor only raises the refinement
+        or Krylov counts (each stage solve checks its own residual)."""
+        if use_dense:
+            return batched_inv_f32(_species_dense_f32(uphi_))
+        return _ras_factor(_build_K_pair(uphi_))
+
+    def species_step_reuse(factor, uphi_, ucp_, ucm_):
+        """Both species' stages with a possibly stale factor."""
+        K_pair = _build_K_pair(uphi_)
+        u_old = torch.stack([ucp_, ucm_])
+        if use_dense:
+            out, iters = _species_pair_onestep(K_pair, u_old, factor)
+        else:
+            out, iters = _species_pair_onestep(K_pair, u_old, None, factor)
+        return out[0], out[1], iters
+
+    def _poisson_residual(uphi_, ucp_, ucm_):
+        dm = vt_phi.dofmap
+        r_el = V.poisson_residual_el(uphi_[dm], ucp_[dm], ucm_[dm], vt_phi,
+                                     sys.l_b, sys.cylindrical, pi)
+        return ctx_phi.constrain(FA.scatter_add(r_el, dm, ndof)
+                                 + ctx_phi.flux_vector)
+
+    def poisson_solve(uphi_, ucp_, ucm_, phi_pre=None):
+        """SLP apply at tolerance 1e-10 (reference :349-350): the affine
+        form's one matvec (dense), f64-residual refinement with the f32
+        inverse (mid-size), or two-level-RAS BiCGSTAB (above)."""
+        pre = poisson_pre if phi_pre is None else phi_pre
+        if poisson_tier == "dense":
+            P_phi, q_phi = pre
+            return q_phi + P_phi @ (ucm_ - ucp_), 1
+        r = _poisson_residual(uphi_, ucp_, ucm_)
+        if poisson_tier == "inverse":
+            x, k = solve_phi_inv(pre, r[None], 1e-10)
+            return uphi_ - x[0], k
+        inv_p, p1_p = pre
+        M = BR.make_two_level_precond(ctx_ras, inv_p, None, op_phi,
+                                      ctx_phi.free, p1_coarse=p1_p)
+        res = bicgstab(op_phi, r, torch.zeros_like(r), M, 1e-10,
+                       sys.linearSolverIterations)
+        return uphi_ - res.x, res.iterations
 
     def fused_step(uphi_, ucp_, ucm_):
         ucp_, ucm_, _ = species_step(uphi_, ucp_, ucm_)
         uphi_, _ = poisson_solve(uphi_, ucp_, ucm_)
         return uphi_, ucp_, ucm_
+
+    def fused_step_reuse(factor, uphi_, ucp_, ucm_):
+        ucp2, ucm2, _ = species_step_reuse(factor, uphi_, ucp_, ucm_)
+        uphi2, _ = poisson_solve(uphi_, ucp2, ucm2)
+        return uphi2, ucp2, ucm2
 
     def scan_steps(state, n_steps: int):
         for _ in range(n_steps):
@@ -321,7 +495,15 @@ def build_pnp_system(
         fused_step=fused_step, scan_steps=scan_steps,
         ionflux_tables=build_ionflux_tables(space, sys.cylindrical, pi,
                                             sys.n_surfaces, device),
-        dt=dt, species_dense_f32=_species_dense_f32, pb_seconds=pb_seconds)
+        dt=dt, species_factor=species_factor,
+        species_step_reuse=species_step_reuse,
+        factor_kind="dense" if use_dense else "ras",
+        fused_step_reuse=fused_step_reuse,
+        species_dense_f32=_species_dense_f32 if use_dense else None,
+        species_local_f32=None if use_dense else _species_local_f32,
+        poisson_tier=poisson_tier, poisson_pre=poisson_pre,
+        block_context=ctx_ras, pb_seconds=pb_seconds,
+        poisson_setup_seconds=poisson_setup_seconds)
 
 
 @dataclasses.dataclass
@@ -337,8 +519,16 @@ class PnpRunResult:
     # host-clock wall times (device synced): setup = phases A-C
     setup_seconds: float = 0.0
     pb_seconds: float = 0.0
+    poisson_setup_seconds: float = 0.0
+    # per step: wall ms (device synced, the factor build included), the
+    # species refinements (dense) or BiCGSTAB iterations (block-RAS)
+    # summed over both stages, the Poisson refinements or iterations (0
+    # when the step skipped the re-solve), and whether it built a factor
     step_ms: list = dataclasses.field(default_factory=list)
-    refinements: list = dataclasses.field(default_factory=list)
+    species_iterations: list = dataclasses.field(default_factory=list)
+    poisson_iterations: list = dataclasses.field(default_factory=list)
+    factor_rebuilt: list = dataclasses.field(default_factory=list)
+    system: Any = None         # the PnpSystem the run stepped
 
 
 def run_instationary_pnp_from_pb(
@@ -355,17 +545,30 @@ def run_instationary_pnp_from_pb(
     presolve_potential: bool = False,
     stage_reduction: float = 1e-5,
     dense_poisson_threshold: int = 8192,
+    ras_block_size: int = 256,
+    ras_refresh_every: Optional[int] = None,
+    poisson_inv_threshold: int = 49152,
     device="cpu",
 ) -> PnpRunResult:
     """Run phases A-D on ``device``. ``presolve_potential`` solves Poisson
     once before the loop (a deviation switch: the reference's first
-    species step sees the raw Dirichlet bias jump)."""
+    species step sees the raw Dirichlet bias jump).
+
+    ``ras_refresh_every`` (default 4 on the block-RAS tier, 1 on the
+    dense tier): the block-RAS species factor is rebuilt on steps whose
+    absolute index is a multiple of it (and on the first step run), so a
+    resumed run keeps the uninterrupted run's schedule; in between, steps
+    reuse it. The dense tier always builds a fresh factor."""
     n_steps = sys.nSteps if n_steps is None else n_steps
     t_setup = _time.perf_counter()
     system = build_pnp_system(sys, space, tableau, device_mesh,
                               stage_reduction=stage_reduction,
                               dense_poisson_threshold=dense_poisson_threshold,
+                              ras_block_size=ras_block_size,
+                              poisson_inv_threshold=poisson_inv_threshold,
                               device=device)
+    if ras_refresh_every is None:
+        ras_refresh_every = 4 if system.factor_kind == "ras" else 1
     uphi, ucp, ucm = system.uphi0, system.ucp0, system.ucm0
     dt = system.dt
     if presolve_potential:
@@ -390,17 +593,31 @@ def run_instationary_pnp_from_pb(
         for name, vec in (("phi", uphi), ("cp", ucp), ("cm", ucm)):
             write_dat(space, _host(vec), os.path.join(output_dir, f"{name}.dat"))
 
-    history, step_ms, refinements = [], [], []
+    history, step_ms = [], []
+    species_its, poisson_its, rebuilt = [], [], []
+    use_ras_reuse = ras_refresh_every > 1 and system.factor_kind == "ras"
+    ras_factor = None
     try:
         for i in range(start_step, n_steps):
             t_step = _time.perf_counter()
             # species stages, then the Poisson re-solve on the cadence
-            ucp, ucm, k = system.species_step(uphi, ucp, ucm)
+            fresh = True
+            if use_ras_reuse:
+                fresh = ras_factor is None or i % ras_refresh_every == 0
+                if fresh:
+                    ras_factor = system.species_factor(uphi)
+                ucp, ucm, k = system.species_step_reuse(ras_factor, uphi,
+                                                        ucp, ucm)
+            else:
+                ucp, ucm, k = system.species_step(uphi, ucp, ucm)
+            kp = 0
             if i % sys.potentialUpdateFreq == 0:
-                uphi, _ = system.poisson_solve(uphi, ucp, ucm)
+                uphi, kp = system.poisson_solve(uphi, ucp, ucm)
             _sync(device)
             step_ms.append(1e3 * (_time.perf_counter() - t_step))
-            refinements.append(k)
+            species_its.append(k)
+            poisson_its.append(kp)
+            rebuilt.append(fresh)
             time += dt
             if i % sys.outputFreq == 0:
                 output_counter += 1
@@ -443,5 +660,7 @@ def run_instationary_pnp_from_pb(
         phi=uphi, cp=ucp, cm=ucm, time=time, steps=n_steps,
         pb_newton_iterations=system.pb_newton_iterations,
         current_history=history, space=space, setup_seconds=setup_seconds,
-        pb_seconds=system.pb_seconds, step_ms=step_ms,
-        refinements=refinements)
+        pb_seconds=system.pb_seconds,
+        poisson_setup_seconds=system.poisson_setup_seconds, step_ms=step_ms,
+        species_iterations=species_its, poisson_iterations=poisson_its,
+        factor_rebuilt=rebuilt, system=system)

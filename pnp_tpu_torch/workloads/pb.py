@@ -1,11 +1,14 @@
 """Phase A: nonlinear Poisson-Boltzmann solve (port of
-``pnp_tpu.workloads.pb``, dense tier).
+``pnp_tpu.workloads.pb``).
 
 P_k space on the full mesh, coulomb (component 0) BC table, Newton with
 the accept-best line search over the config knobs, Krylov backend selected
-by config. The element residual and Jacobian both come from the fused PB
-kernel (:func:`..operators.kernels.pb_residual_jacobian`: CUDA on a CUDA
-device, its plain version on the CPU).
+by config; above ``ras_threshold`` dofs ``BCGS_SSORk`` becomes BiCGSTAB
+under block-RAS with exact local inverses (:mod:`..solvers.block_ras`),
+rebuilt at every Jacobian assembly. The element residual and Jacobian both
+come from the fused PB kernel
+(:func:`..operators.kernels.pb_residual_jacobian`: CUDA on a CUDA device,
+its plain version on the CPU).
 
 As in the reference, Dirichlet values are not interpolated into the
 initial iterate (u0 = 0), so PB is solved with phi = 0 on all Dirichlet
@@ -20,6 +23,8 @@ from ..config import Sysparams
 from ..fem import assembly as A
 from ..fem.space import FunctionSpace
 from ..operators import kernels as K
+from ..solvers import block_ras as BR
+from ..solvers.krylov import bicgstab
 from ..solvers.newton import newton_solve, NewtonParams, NewtonResult
 from ..solvers.linear_problem import make_krylov_solver
 from .common import ScalarContext, make_scalar_context
@@ -40,30 +45,54 @@ def make_pb_residual(ctx: ScalarContext):
     return residual
 
 
-def make_pb_assemble_solve(ctx: ScalarContext, ras_threshold: int = 8192):
-    """Split (assemble, solve) pair for the reassemble-threshold Newton:
-    ``assemble(u)`` builds the element Jacobian and the assembled diagonal,
-    ``solve(jac_ctx, r, red)`` runs the configured Krylov variant."""
+def make_pb_assemble_solve(ctx: ScalarContext, ras_threshold: int = 8192,
+                           ras_block_size: int = 256):
+    """Split (assemble, solve) pair for the reassemble-threshold Newton.
+
+    ``assemble(u)`` builds the element Jacobian and the preconditioner
+    factor: block-RAS local inverses above ``ras_threshold`` dofs (with
+    ``BCGS_SSORk``), the assembled diagonal below; ``solve(jac_ctx, r,
+    red)`` runs BiCGSTAB + RAS or the configured Krylov variant."""
     sys = ctx.sys
-    if sys.linearSolver == "BCGS_SSORk" and ctx.ndof > ras_threshold:
-        raise NotImplementedError(
-            f"PB at {ctx.ndof} dofs needs the block-RAS preconditioner "
-            "(ROADMAP: modules to port, 'Block-RAS tier')")
     krylov = make_krylov_solver(sys.linearSolver, sys.linearSolverIterations)
+    ctx_ras = None
+    if sys.linearSolver == "BCGS_SSORk" and ctx.ndof > ras_threshold:
+        ctx_ras = BR.build_block_context_for_space(ctx.space, ras_block_size,
+                                                   ctx.device)
 
     def assemble(u):
         _, A_el = _pb_element(ctx, u)
+        if ctx_ras is not None:
+            return A_el, BR.build_local_inverses(ctx_ras, A_el, ctx.free)
         return A_el, A.constrained_diagonal(A_el, ctx.dofmap, ctx.ndof,
                                             ctx.free)
 
     def solve(jac_ctx, r, reduction):
-        A_el, diag = jac_ctx
+        A_el, factor = jac_ctx
         op = A.make_constrained_operator(A_el, ctx.dofmap, ctx.ndof, ctx.free)
-        res = krylov(op, ctx.constrain(r), torch.zeros_like(r), diag,
+        if ctx_ras is not None:
+            M = BR.make_ras_precond(ctx_ras, factor, ctx.free)
+            rs = ctx.constrain(r)
+            res = bicgstab(op, rs, torch.zeros_like(rs), M, reduction,
+                           sys.linearSolverIterations)
+            return res.x, res.iterations
+        res = krylov(op, ctx.constrain(r), torch.zeros_like(r), factor,
                      reduction, A_el=A_el)
         return res.x, res.iterations
 
     return assemble, solve
+
+
+def make_pb_linear_solver(ctx: ScalarContext, ras_threshold: int = 8192,
+                          ras_block_size: int = 256):
+    """Combined per-iteration assembly + solve (always reassembles)."""
+    assemble, solve = make_pb_assemble_solve(ctx, ras_threshold,
+                                             ras_block_size)
+
+    def combined(u, r, reduction):
+        return solve(assemble(u), r, reduction)
+
+    return combined
 
 
 def solve_pb(sys: Sysparams, space: FunctionSpace,

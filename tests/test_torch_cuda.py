@@ -15,8 +15,8 @@ from pnp_tpu_torch.meshio.structured import rect_mesh
 from pnp_tpu_torch.operators import kernels as K
 from pnp_tpu_torch.problems import pore_case
 from pnp_tpu_torch.solvers.direct import contraction_ok
-from pnp_tpu_torch.workloads.instationary_pnp_from_pb import \
-    run_instationary_pnp_from_pb
+from pnp_tpu_torch.workloads.instationary_pnp_from_pb import (
+    build_pnp_system, run_instationary_pnp_from_pb)
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -94,6 +94,53 @@ def test_slice_on_card_matches_cpu(cuda):
     assert min(K.launches.values()) > 0
     b = run_instationary_pnp_from_pb(sys_, space, n_steps=1,
                                      presolve_potential=True)
+    for name in ("phi", "cp", "cm"):
+        x, y = getattr(a, name).cpu(), getattr(b, name)
+        assert float((x - y).abs().max()) <= 1e-9 * float(y.abs().max())
+
+
+BLOCK_RAS = dict(dense_poisson_threshold=0, ras_block_size=64)
+
+
+def test_gj_kernel_on_ras_batch(cuda):
+    """Kernel 1 on a real species block-RAS batch: the (2, 8, 103, 103)
+    local stage matrices of the 488-node pore at the presolved potential,
+    flattened to (16, 103, 103). One input tensor for both versions (the
+    local assembly sums with atomics on the card); equal to 1e-6 of the
+    inverse's scale, and the probe passes."""
+    sys_, space = pore_case(30, 17)
+    system = build_pnp_system(sys_, space, device=cuda, **BLOCK_RAS)
+    uphi, _ = system.poisson_solve(system.uphi0, system.ucp0, system.ucm0)
+    A = system.species_local_f32(uphi)
+    assert tuple(A.shape) == (2, 8, 103, 103)
+    A = A.reshape(16, 103, 103)
+    X = K.gj_inverse(A)
+    Xp = K.gj_inverse_plain(A)
+    torch.testing.assert_close(X, Xp, rtol=0,
+                               atol=1e-6 * float(Xp.abs().max()))
+    assert contraction_ok(A, X)
+
+
+@pytest.mark.parametrize("poisson_inv_threshold", [49152, 0])
+def test_block_ras_step_on_card_matches_cpu(cuda, poisson_inv_threshold):
+    """One presolved block-RAS step (mid-size Poisson inverse, or
+    two-level RAS Poisson) on the card against the CPU: Krylov iteration
+    and refinement counts within one (the card's atomic assembly moves the
+    f32 factors' inputs by their last bits, which can move a residual that
+    lands on its target across it; chip_smoke.py measured one such step
+    in five), fields to 1e-9 relative (the tolerance of the dense-tier
+    check above, for the same reasons)."""
+    sys_, space = pore_case(30, 17)
+    kw = dict(n_steps=1, presolve_potential=True,
+              poisson_inv_threshold=poisson_inv_threshold, **BLOCK_RAS)
+    K.reset_launch_counts()
+    a = run_instationary_pnp_from_pb(sys_, space, device=cuda, **kw)
+    assert min(K.launches.values()) > 0
+    b = run_instationary_pnp_from_pb(sys_, space, **kw)
+    assert a.system.factor_kind == b.system.factor_kind == "ras"
+    for x, y in ((a.species_iterations, b.species_iterations),
+                 (a.poisson_iterations, b.poisson_iterations)):
+        assert len(x) == len(y) == 1 and abs(x[0] - y[0]) <= 1, (x, y)
     for name in ("phi", "cp", "cm"):
         x, y = getattr(a, name).cpu(), getattr(b, name)
         assert float((x - y).abs().max()) <= 1e-9 * float(y.abs().max())

@@ -65,7 +65,9 @@ def test_slice_matches_reference(runs):
                                               jr.current_history):
         assert ta == tb
         assert rel(ipa, ipb) <= RTOL and rel(ima, imb) <= RTOL
-    assert len(tr.step_ms) == STEPS and tr.refinements == [4] * STEPS
+    assert len(tr.step_ms) == STEPS and tr.species_iterations == [4] * STEPS
+    assert tr.poisson_iterations == [1] * STEPS
+    assert tr.factor_rebuilt == [True] * STEPS
 
 
 def test_pb_field_matches_reference(runs):
@@ -138,9 +140,15 @@ def test_non_finite_guard(runs, monkeypatch):
 
 
 def test_unported_tiers_raise():
+    """Above the dense threshold the block-RAS tier now builds; the
+    options that are still unported raise, naming their ROADMAP item."""
     tsys, tspace = problems.pore_case(30, 17)
-    with pytest.raises(NotImplementedError, match="Block-RAS"):
-        TW.build_pnp_system(tsys, tspace, dense_poisson_threshold=100)
+    system = TW.build_pnp_system(tsys, tspace, dense_poisson_threshold=100)
+    assert (system.factor_kind, system.poisson_tier) == ("ras", "inverse")
+    assert system.block_context.K == 2
+    with pytest.raises(NotImplementedError, match="mid-size species"):
+        TW.build_pnp_system(tsys, tspace, dense_poisson_threshold=100,
+                            species_inv_threshold=1000)
     with pytest.raises(NotImplementedError, match="Multi-device"):
         TW.build_pnp_system(tsys, tspace, device_mesh=object())
     skewed = Tableau("skewed", A=np.array([[-1.0, 1.0, 0.0],
@@ -168,6 +176,12 @@ def test_port_never_imports_jax():
             "r = run_instationary_pnp_from_pb(*pore_case(30, 17), n_steps=1,"
             " presolve_potential=True)\n"
             "assert bool(r.phi.isfinite().all())\n"
+            "b = run_instationary_pnp_from_pb(*pore_case(30, 17), n_steps=1,"
+            " presolve_potential=True, dense_poisson_threshold=0,"
+            " ras_block_size=64, poisson_inv_threshold=0)\n"
+            "assert b.system.factor_kind == 'ras' and "
+            "b.system.poisson_tier == 'ras'\n"
+            "assert bool(b.phi.isfinite().all())\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'pnp_tpu'))\n"
             "print('LOADED', bad)\n"
