@@ -8,18 +8,24 @@ result line:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build both CUDA kernels from ``pnp_tpu_torch/csrc/`` (timed);
-3. kernel 1 (Gauss-Jordan inverse) against its plain PyTorch version on
-   the card: on the real (2, 4801, 4801) species stage batch of the
-   full-size pore case (at the presolved potential: the batch the main
-   path's first step inverts), at the reference kernel's test shapes and
-   on a row-permuted matrix;
+3. kernel 1 (panel-blocked Gauss-Jordan inverse) against its plain PyTorch
+   version on the card: on the real (2, 4801, 4801) species stage batch of
+   the full-size pore case (at the presolved potential: the batch the main
+   path's first step inverts), timed beside ``torch.linalg.inv`` on the
+   same tensor (``library_ms``; the port never calls it there); at the
+   reference kernel's test shapes, on a row-permuted matrix, and in both
+   kernel variants on orders below one panel, orders that are no multiple
+   of the panel width, and a matrix whose first pivots lie in its last
+   rows (far outside the first panel's diagonal block);
 4. kernel 2 (fused PB element residual + Jacobian) against its plain
-   version at E = 9200 in f64;
+   version at E = 9200 in f64, with its device time from the profiler
+   beside the wrapper's;
 5. the whole slice on ``pore_case(30, 17)``, CUDA against the CPU plain
    path, to 1e-9 relative;
 6. the main path: ``run_instationary_pnp_from_pb`` on ``pore_case(100, 55)``
    (4,801 nodes, the dense tier at full size): PB bootstrap, then 10
-   presolved steps, with every kernel launch counted;
+   presolved steps, with every kernel launch counted, and a
+   ``torch.profiler`` trace of one more step (``[dense trace]``);
 7. block-RAS parity: ``pore_case(30, 17)`` forced onto the block-RAS tier,
    5 presolved steps with the factor refreshed every 4, CUDA against CPU,
    once with the mid-size Poisson inverse and once with the two-level RAS
@@ -39,9 +45,12 @@ result line:
     two-level RAS Poisson tier on the same state against the mid-size tier.
 
 The next-to-last line is ``{"kernels": [...]}``: per kernel its launches
-in phase 6 (and in phase 8 as ``launches_block_ras``) and the error and
-times measured in phases 3-4 (and 9 under ``block_ras_shape`` and
-``poisson_shape``). The last line is ``{"ok": true, "device": {...}}``.
+in phase 6 (and in phase 8 as ``launches_block_ras``), the error and
+times measured in phases 3-4, its bound on this card (``bound_ms``, the
+larger of bytes once in and once out over 3.35 TB/s and operations over
+the peak rate of their type; ``bound_by`` says which) and ``library_ms``;
+the same keys for the block-RAS run's shapes under ``block_ras_shape``
+and ``poisson_shape``. The last line is ``{"ok": true, "device": {...}}``.
 Needs a CUDA device and ``nvcc``; writes the runs' outputs under
 ``chip_smoke_out/`` (gitignored).
 """
@@ -70,10 +79,15 @@ PARITY_STEPS = 5
 # residual; their solutions agree to 1e-8 (the reference's cross-tier
 # bound, tests/test_block_ras.py:279)
 TIER_REL_TOL = 1e-8
-# kernel 1 against its plain version: both run the same IEEE f32 operations
-# in the same order (0 expected); the bound leaves room for a rounding
-# difference amplified by the stage matrices' conditioning
+# kernel 1 against its plain version: the same panel-blocked elimination
+# and the same pivot rows, but the rank-nb sums are rounded in another
+# order (fused multiply-adds, another summation order than cuBLAS); the
+# bound leaves room for that difference amplified by the stage matrices'
+# conditioning
 GJ_REL_TOL = 1e-4
+# published peaks of one H100 SXM (NVIDIA's data sheet) for the bounds: f32
+# and f64 outside the tensor cores, and the memory rate
+PEAK_F32, PEAK_F64, PEAK_BYTES = 67e12, 33.5e12, 3.35e12
 # kernel 2 against its plain version: f64, sums over quadrature points and
 # dofs in another order
 PB_REL_TOL = 1e-12
@@ -122,6 +136,100 @@ def timed(torch, fn):
     return out, start.elapsed_time(end)
 
 
+def bound(flop: float, peak: float, nbytes: float):
+    """The least time the card could take, ms, and which resource sets it."""
+    t_ops, t_bytes = 1e3 * flop / peak, 1e3 * nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def gj_bound(S: int, N: int):
+    """2 N^3 f32 flop a matrix; the batch read once and written once."""
+    return bound(2.0 * S * N ** 3, PEAK_F32, 8.0 * S * N * N)
+
+
+def pb_bound(E: int, n: int, q: int):
+    """Per element in f64: ue, gradphi, qw, qy in, r and A out (47 values at
+    n = 3, q = 4), the shape table once; per quadrature point 6n flop of
+    interpolation, ~45 for sinh, cosh and the weights, 8n for the residual
+    and 8n^2 for the Jacobian."""
+    values = E * (n + 2 * q * n + 2 * q + n + n * n) + q * n
+    return bound(E * q * (14.0 * n + 8.0 * n * n + 45.0), PEAK_F64,
+                 8.0 * values)
+
+
+def gj_shape_check(torch, K, contraction_ok, A, label: str, reps: int,
+                   plain_reps: int) -> dict:
+    """Kernel 1 on the (S, N, N) f32 batch ``A``: against its plain version
+    (max error, relative to the inverse's scale, within GJ_REL_TOL), the
+    contraction probe, and the times of the kernel, the plain version and
+    ``torch.linalg.inv`` (the library's yardstick, used nowhere in the
+    port), each on this one tensor."""
+    S, N, _ = A.shape
+    X_k = K.gj_inverse(A)
+    X_p = K.gj_inverse_plain(A)
+    err = float((X_k - X_p).abs().max())
+    rel = rel_err(X_k, X_p)
+    ok = contraction_ok(A, X_k)
+    del X_p
+    lib_rel = rel_err(X_k, torch.linalg.inv(A))
+    del X_k
+    ms = cuda_ms(torch, lambda: K.gj_inverse(A), reps)
+    lib_ms = cuda_ms(torch, lambda: torch.linalg.inv(A), reps)
+    if plain_reps:
+        plain_ms = cuda_ms(torch, lambda: K.gj_inverse_plain(A), plain_reps)
+    else:                                   # seconds a call: time one
+        plain_ms = timed(torch, lambda: K.gj_inverse_plain(A))[1]
+    b_ms, b_by = gj_bound(S, N)
+    print(f"[kernel gj_inverse, {label}] ({S}, {N}, {N}): max abs err vs "
+          f"plain {err:.3e} (rel {rel:.3e}, tol {GJ_REL_TOL:g}), "
+          f"contraction_ok {ok}; kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+          f"ms, torch.linalg.inv {lib_ms:.3f} ms (rel diff {lib_rel:.3e}); "
+          f"bound {b_ms:.4f} ms by {b_by} ({100 * b_ms / ms:.1f} % reached)",
+          flush=True)
+    check(ok and rel <= GJ_REL_TOL, f"gj_inverse on the {label}")
+    return {"shape": [S, N, N], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms, "library_rel_diff": lib_rel}
+
+
+def pb_check(torch, K, args, E_want: int) -> dict:
+    """Kernel 2 against its plain version on ``args`` (f64): error, the
+    wrapper-inclusive times (CUDA events around whole calls) and the
+    kernel's own device time from a profiler trace of 20 calls."""
+    r_k, A_k = K.pb_residual_jacobian(*args)
+    r_p, A_p = K.pb_residual_jacobian_plain(*args)
+    err = max(float((r_k - r_p).abs().max()), float((A_k - A_p).abs().max()))
+    rel = max(rel_err(r_k, r_p), rel_err(A_k, A_p))
+    ms = cuda_ms(torch, lambda: K.pb_residual_jacobian(*args), 50)
+    plain_ms = cuda_ms(torch, lambda: K.pb_residual_jacobian_plain(*args), 50)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(20):
+            K.pb_residual_jacobian(*args)
+        torch.cuda.synchronize()
+    own = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and "pb_element_kernel" in e.key]
+    n_own = sum(e.count for e in own)
+    check(n_own > 0, "pb_element_kernel not found in the profiler trace: "
+          f"{sorted(e.key[:40] for e in prof.key_averages())}")
+    device_ms = sum(e.self_device_time_total for e in own) / n_own / 1e3
+    E, n = args[0].shape
+    q = args[1].shape[0]
+    b_ms, b_by = pb_bound(E, n, q)
+    print(f"[kernel pb_residual_jacobian] E={E} f64: max abs err vs plain "
+          f"{err:.3e} (rel {rel:.3e}, tol {PB_REL_TOL:g}); kernel "
+          f"{ms:.4f} ms a call (wrapper included), {device_ms:.4f} ms on the "
+          f"device (profiler), plain {plain_ms:.4f} ms; bound {b_ms:.5f} ms "
+          f"by {b_by}; no single PyTorch call computes it", flush=True)
+    check(E == E_want and rel <= PB_REL_TOL, f"pb_residual_jacobian at E = "
+          f"{E}")
+    return {"E": E, "max_abs_err": err, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -164,6 +272,36 @@ def gj_checks(torch, K, contraction_ok, dev):
           f"plain {err:.3e}  contraction_ok {ok}")
     check(bool(torch.isfinite(X).all()) and resid < 1e-2 and ok
           and err <= GJ_REL_TOL, "gj_inverse permuted case")
+
+    # both kernel variants (0: one block a matrix, 1: the panel path) below
+    # one panel, off the panel grid, and with the first pivots in the last
+    # rows (rows reversed: column 0's pivot is row N - 1, far outside the
+    # first panel's diagonal block); pivot rows equal the plain version's
+    for name, S, N, variant, panel, flip in (
+            ("N < panel", 2, 20, 0, 32, False),
+            ("N < panel", 2, 20, 1, 64, False),
+            ("N mod panel", 2, 77, 0, 32, False),
+            ("N mod panel", 2, 333, 1, 64, False),
+            ("N mod panel", 1, 515, 1, 48, False),
+            ("cross-block pivots", 2, 300, 0, 32, True),
+            ("cross-block pivots", 1, 700, 1, 64, True)):
+        rng = np.random.RandomState(N)
+        A = (rng.rand(S, N, N).astype(np.float32) * 0.1
+             + np.eye(N, dtype=np.float32)[None] * N * 0.05)
+        A = torch.tensor(A[:, ::-1].copy() if flip else A, device=dev)
+        X, perm = K._gj_core_cuda(A, panel, variant)
+        Xp, perm_p = K._gj_core_plain(A, panel)
+        err = rel_err(X, Xp)
+        lib = rel_err(X, torch.linalg.inv(A))
+        same = bool((perm.long() == perm_p).all())
+        far = int(perm[0, 0])
+        ok = contraction_ok(A, X)
+        print(f"  gj_inverse {name} ({S}, {N}) variant {variant} panel "
+              f"{panel}: rel err vs plain {err:.3e}, vs torch.linalg.inv "
+              f"{lib:.3e}, pivot rows equal {same} (column 0's: {far}), "
+              f"contraction_ok {ok}")
+        check(ok and same and err <= GJ_REL_TOL and lib <= GJ_REL_TOL
+              and (not flip or far >= panel), f"gj_inverse {name} ({S}, {N})")
 
 
 def ras_parity(torch, W, pore_case, dev) -> None:
@@ -279,19 +417,8 @@ def ras_kernel_checks(torch, K, direct, FA, V, make_scalar_context, system,
     A = system.species_local_f32(uphi1)
     check(tuple(A.shape) == (2, n_blocks, L, L), f"RAS batch {A.shape}")
     A = A.reshape(2 * n_blocks, L, L)
-    X_k = K.gj_inverse(A)
-    X_p = K.gj_inverse_plain(A)
-    err = float((X_k - X_p).abs().max())
-    rel = rel_err(X_k, X_p)
-    ok = direct.contraction_ok(A, X_k)
-    del X_k, X_p
-    gj_ms = cuda_ms(torch, lambda: K.gj_inverse(A), 5)
-    gj_plain_ms = cuda_ms(torch, lambda: K.gj_inverse_plain(A), 3)
-    print(f"[kernel gj_inverse, RAS batch] {tuple(A.shape)} species local "
-          f"stage batch: max abs err vs plain {err:.3e} (rel {rel:.3e}, tol "
-          f"{GJ_REL_TOL:g}), contraction_ok {ok}; kernel {gj_ms:.3f} ms, "
-          f"plain {gj_plain_ms:.3f} ms", flush=True)
-    check(ok and rel <= GJ_REL_TOL, "gj_inverse on the RAS batch")
+    gj = gj_shape_check(torch, K, direct.contraction_ok, A,
+                        "species RAS local batch", 5, 3)
     del A
 
     # the mid-size tier's constant Poisson matrix, assembled as the driver
@@ -302,50 +429,26 @@ def ras_kernel_checks(torch, K, direct, FA, V, make_scalar_context, system,
     A_el = V.poisson_jacobian_el(vt, sys_r.cylindrical, sys_r.pi)
     P32 = FA.dense_constrained_matrix(A_el.to(torch.float32), vt.dofmap,
                                       nodes, ctx.free)[None]
-    X_k, gjp_ms = timed(torch, lambda: K.gj_inverse(P32))
-    X_p, gjp_plain_ms = timed(torch, lambda: K.gj_inverse_plain(P32))
-    p_err = float((X_k - X_p).abs().max())
-    p_rel = rel_err(X_k, X_p)
-    p_ok = direct.contraction_ok(P32, X_k)
-    del X_k, X_p, P32
-    print(f"[kernel gj_inverse, Poisson] (1, {nodes}, {nodes}) constant "
-          f"Poisson matrix: max abs err vs plain {p_err:.3e} (rel "
-          f"{p_rel:.3e}, tol {GJ_REL_TOL:g}), contraction_ok {p_ok}; kernel "
-          f"{gjp_ms:.1f} ms, plain {gjp_plain_ms:.1f} ms", flush=True)
-    check(p_ok and p_rel <= GJ_REL_TOL, "gj_inverse on the Poisson matrix")
+    check(tuple(P32.shape) == (1, nodes, nodes), f"Poisson {P32.shape}")
+    gj_poisson = gj_shape_check(torch, K, direct.contraction_ok, P32,
+                                "constant Poisson matrix", 3, 0)
+    del P32
 
     args = (system.pb[vt.dofmap], vt.shape, vt.gradphi, vt.qw, vt.qy,
             sys_r.l_b, sys_r.c0, sys_r.cylindrical, sys_r.pi)
-    r_k, A_k = K.pb_residual_jacobian(*args)
-    r_p, A_p = K.pb_residual_jacobian_plain(*args)
-    pb_err = max(float((r_k - r_p).abs().max()),
-                 float((A_k - A_p).abs().max()))
-    pb_rel = max(rel_err(r_k, r_p), rel_err(A_k, A_p))
-    pb_ms = cuda_ms(torch, lambda: K.pb_residual_jacobian(*args), 50)
-    pb_plain_ms = cuda_ms(torch, lambda: K.pb_residual_jacobian_plain(*args),
-                          50)
-    E = vt.num_elements
-    print(f"[kernel pb_residual_jacobian] E={E} f64: max abs err vs plain "
-          f"{pb_err:.3e} (rel {pb_rel:.3e}, tol {PB_REL_TOL:g}); kernel "
-          f"{pb_ms:.4f} ms, plain {pb_plain_ms:.4f} ms", flush=True)
-    check(E == tris and pb_rel <= PB_REL_TOL, "pb_residual_jacobian at E "
-          f"= {E}")
-    return {"gj": {"shape": [2 * n_blocks, L, L], "max_abs_err": err,
-                   "ms": gj_ms, "plain_ms": gj_plain_ms},
-            "gj_poisson": {"shape": [1, nodes, nodes], "max_abs_err": p_err,
-                           "ms": gjp_ms, "plain_ms": gjp_plain_ms},
-            "pb": {"E": E, "max_abs_err": pb_err, "ms": pb_ms,
-                   "plain_ms": pb_plain_ms}}
+    pb = pb_check(torch, K, args, tris)
+    return {"gj": gj, "gj_poisson": gj_poisson, "pb": pb}
 
 
-def trace_summary(torch, prof, wall_s: float, label: str) -> None:
+def trace_summary(torch, prof, wall_s: float, label: str,
+                  tag: str = "block-RAS trace") -> None:
     """Device kernel time, kernel count and the costliest kernels of one
     traced step."""
     kern = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
     n = sum(e.count for e in kern)
-    print(f"[block-RAS trace] {label} step: wall {1e3 * wall_s:.2f} ms "
+    print(f"[{tag}] {label} step: wall {1e3 * wall_s:.2f} ms "
           f"(profiled), device kernel time {dev_ms:.2f} ms "
           f"({100 * dev_ms / (1e3 * wall_s):.1f} % busy), {n} kernels")
     for e in sorted(kern, key=lambda e: e.self_device_time_total,
@@ -458,19 +561,8 @@ def main() -> int:
                                      system0.ucm0)
     A32 = system0.species_dense_f32(uphi1)
     check(tuple(A32.shape) == (2, 4801, 4801), f"stage batch {A32.shape}")
-    X_k = K.gj_inverse(A32)
-    X_p = K.gj_inverse_plain(A32)
-    gj_err = float((X_k - X_p).abs().max())
-    gj_rel = rel_err(X_k, X_p)
-    gj_ok = direct.contraction_ok(A32, X_k)
-    del X_k, X_p
-    gj_ms = cuda_ms(torch, lambda: K.gj_inverse(A32), 3)
-    gj_plain_ms = cuda_ms(torch, lambda: K.gj_inverse_plain(A32), 2)
-    print(f"[kernel gj_inverse] (2, 4801) stage batch: max abs err vs plain "
-          f"{gj_err:.3e} (rel {gj_rel:.3e}, tol {GJ_REL_TOL:g}), "
-          f"contraction_ok {gj_ok}; kernel {gj_ms:.3f} ms, plain "
-          f"{gj_plain_ms:.3f} ms")
-    check(gj_ok and gj_rel <= GJ_REL_TOL, "gj_inverse on the stage batch")
+    gj = gj_shape_check(torch, K, direct.contraction_ok, A32,
+                        "species stage batch", 3, 2)
     gj_checks(torch, K, direct.contraction_ok, dev)
     del A32
     sys.stdout.flush()
@@ -480,18 +572,7 @@ def main() -> int:
     vt = ctx.vt
     args = (system0.pb[vt.dofmap], vt.shape, vt.gradphi, vt.qw, vt.qy,
             sys_big.l_b, sys_big.c0, sys_big.cylindrical, sys_big.pi)
-    r_k, A_k = K.pb_residual_jacobian(*args)
-    r_p, A_p = K.pb_residual_jacobian_plain(*args)
-    pb_err = max(float((r_k - r_p).abs().max()), float((A_k - A_p).abs().max()))
-    pb_rel = max(rel_err(r_k, r_p), rel_err(A_k, A_p))
-    pb_ms = cuda_ms(torch, lambda: K.pb_residual_jacobian(*args), 50)
-    pb_plain_ms = cuda_ms(torch, lambda: K.pb_residual_jacobian_plain(*args),
-                          50)
-    E = vt.num_elements
-    print(f"[kernel pb_residual_jacobian] E={E} f64: max abs err vs plain "
-          f"{pb_err:.3e} (rel {pb_rel:.3e}, tol {PB_REL_TOL:g}); kernel "
-          f"{pb_ms:.4f} ms, plain {pb_plain_ms:.4f} ms", flush=True)
-    check(E == 9200 and pb_rel <= PB_REL_TOL, "pb_residual_jacobian")
+    pb = pb_check(torch, K, args, 9200)
     del system0, ctx, args
 
     # ---- 5. slice parity, CUDA against CPU ------------------------------
@@ -547,7 +628,15 @@ def main() -> int:
     check(failures == 0, f"{failures} contraction-probe failures")
     for name, n in counts.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
-    del res
+    with maybe_trace(os.path.join(out_dir, "trace_dense")) as prof:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        c2 = res.system.species_step(res.phi, res.cp, res.cm)
+        res.system.poisson_solve(res.phi, c2[0], c2[1])
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    trace_summary(torch, prof, wall, "dense", tag="dense trace")
+    del res, c2
     print(f"[dense tier done] {time.perf_counter() - t_all:.1f} s",
           flush=True)
 
@@ -559,20 +648,22 @@ def main() -> int:
     ras_breakdown(torch, W, PhaseTimer, maybe_trace, ras_res, dev)
     print(f"[done] {time.perf_counter() - t_all:.1f} s")
 
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     kernels = [
         {"name": "gj_inverse", "route": "cuda",
          "source": "pnp_tpu_torch/csrc/gj_inverse.cu",
          "replaces": "pnp_tpu/operators/pallas_kernels.py:343",
-         "launches": counts["gj_inverse"], "max_abs_err": gj_err,
-         "ms": gj_ms, "plain_ms": gj_plain_ms,
+         "launches": counts["gj_inverse"], **{k: gj[k] for k in keys},
+         "shape": gj["shape"], "library_rel_diff": gj["library_rel_diff"],
          "launches_block_ras": ras_counts["gj_inverse"],
          "block_ras_shape": ras_k["gj"],
          "poisson_shape": ras_k["gj_poisson"]},
         {"name": "pb_residual_jacobian", "route": "cuda",
          "source": "pnp_tpu_torch/csrc/pb_element.cu",
          "replaces": "pnp_tpu/operators/pallas_kernels.py:105",
-         "launches": counts["pb_residual_jacobian"], "max_abs_err": pb_err,
-         "ms": pb_ms, "plain_ms": pb_plain_ms,
+         "launches": counts["pb_residual_jacobian"],
+         **{k: pb[k] for k in keys}, "device_ms": pb["device_ms"],
          "launches_block_ras": ras_counts["pb_residual_jacobian"],
          "block_ras_shape": ras_k["pb"]},
     ]

@@ -8,8 +8,9 @@ the ``tests/test_torch_*.py`` parity tests. It imports ``torch`` and never
 arrays.
 
 Idiom: plain functions on tensors, dataclasses of tensors where ``pnp_tpu``
-has pytrees, an explicit ``device`` argument from the entry point down, and
-Python loops where ``pnp_tpu`` has ``jit``/``while_loop``/``scan``. Dtypes
+has pytrees, an explicit ``device`` argument from the entry point down (the
+entry points default to the current CUDA device and raise without one;
+``device="cpu"`` runs on the CPU, as the tests do), and Python loops where ``pnp_tpu`` has ``jit``/``while_loop``/``scan``. Dtypes
 follow ``pnp_tpu`` under x64: f64 everywhere, f32 where it casts to f32.
 The two Pallas kernels are hand-written CUDA C++ (``csrc/``, bound in
 :mod:`pnp_tpu_torch.operators.kernels`).

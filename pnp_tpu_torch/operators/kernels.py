@@ -4,8 +4,18 @@ Counterpart of ``pnp_tpu/operators/pallas_kernels.py``. Both Pallas
 kernels there become CUDA C++ kernels in ``pnp_tpu_torch/csrc/``:
 
 * :func:`gj_inverse` (``csrc/gj_inverse.cu``) replaces
-  ``batched_inverse_pallas``: batched explicit f32 inverses by Gauss-Jordan
-  with partial pivoting over the whole remaining column;
+  ``batched_inverse_pallas``: batched explicit f32 inverses by
+  panel-blocked Gauss-Jordan with partial pivoting over the whole
+  remaining column. Per panel of columns: the in-place steps on the panel
+  alone, the panel's row swaps on all other columns, then one rank-panel
+  product on them, so the working set is passed over N / panel times
+  instead of N. Two kernel variants, chosen from N here: one block a
+  matrix with 32-wide panels in shared memory up to N = 512 (the block-RAS
+  local batches), and above it a panel path with 64-wide panels (the
+  dense stage batch, the mid-size Poisson matrix). Its bound on an H100
+  is the 2 N^3 f32 flop a matrix on the FMA pipe; the source's header
+  note has the design and its measured times. The plain version is the
+  same algorithm in torch ops, with the panel width as an argument;
 * :func:`pb_residual_jacobian` (``csrc/pb_element.cu``) replaces
   ``pb_residual_jacobian_pallas``: the fused PB element residual and
   Jacobian.
@@ -114,10 +124,22 @@ def build() -> dict:
             "cached": cached, "log": log}
 
 
+def _bind_gj(lib):
+    """Argument types of ``csrc/gj_inverse.cu``'s C interface."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.gj_inverse_f32.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.gj_inverse_f32.restype = i
+    lib.gj_work_pitch.argtypes = [i]
+    lib.gj_work_pitch.restype = i
+    for fn in (lib.gj_scratch_floats, lib.gj_scratch_ints):
+        fn.argtypes = [i, i, i, i]
+        fn.restype = ctypes.c_longlong
+    return lib
+
+
 def _bind(lib):
     p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    lib.gj_inverse_f32.argtypes = [p, p, p, p, p, i, i, p]
-    lib.gj_inverse_f32.restype = i
+    _bind_gj(lib)
     for name in ("pb_element_f64", "pb_element_f32"):
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, p, p, p, p, i, i, i, d, i, d, p]
@@ -153,27 +175,57 @@ def _check_square_f32(A) -> None:
                          f"{tuple(A.shape)} {A.dtype}")
 
 
-def _gj_core_plain(W):
-    """Gauss-Jordan with partial pivoting over the whole remaining column,
-    in torch ops (the arithmetic of ``csrc/gj_inverse.cu`` step by step)."""
+# panel widths, settled on the H100: the one-block kernel serves N up to
+# SMALL_N_MAX with panels of 32 columns in shared memory, the panel path
+# takes wider panels (the update's flop per byte is a quarter of the width)
+SMALL_N_MAX = 512
+SMALL_PANEL = 32
+PANEL = 64
+
+
+def panel_width(N: int) -> int:
+    """The panel width both versions use for order N."""
+    return SMALL_PANEL if N <= SMALL_N_MAX else PANEL
+
+
+def _gj_core_plain(W, panel=None):
+    """Panel-blocked Gauss-Jordan with partial pivoting over the whole
+    remaining column, in torch ops (the algorithm of ``csrc/gj_inverse.cu``):
+    per panel of ``panel`` columns, the in-place steps on the panel alone
+    (rows swapped whole), then one rank-``panel`` product on all other
+    columns. ``panel=1`` is a column-by-column elimination. Returns the
+    inverse and the pivot rows, (S, N) int64."""
     W = W.clone()
     S, N, _ = W.shape
+    B = panel_width(N) if panel is None else int(panel)
     b = torch.arange(S, device=W.device)
     perm = torch.empty((S, N), dtype=torch.int64, device=W.device)
-    for k in range(N):
-        p = k + torch.argmax(W[:, k:, k].abs(), dim=1)       # lowest on ties
-        perm[:, k] = p
-        row_k, row_p = W[b, k].clone(), W[b, p].clone()
-        W[b, p] = row_k
-        W[b, k] = row_p
-        piv = W[:, k, k].clone()
-        r = W[:, k, :] / piv[:, None]
-        r[:, k] = 1.0 / piv
-        c = W[:, :, k].clone()
-        c[:, k] = 0.0
-        W[:, :, k] = 0.0
-        W -= c[:, :, None] * r[:, None, :]
-        W[:, k, :] = r
+    for k0 in range(0, N, B):
+        nb = min(B, N - k0)
+        P = W[:, :, k0:k0 + nb]                              # a view
+        for kk in range(nb):
+            k = k0 + kk
+            p = k + torch.argmax(P[:, k:, kk].abs(), dim=1)  # lowest on ties
+            perm[:, k] = p
+            row_k, row_p = W[b, k], W[b, p]
+            W[b, p] = row_k
+            W[b, k] = row_p
+            piv = P[:, k, kk].clone()
+            r = P[:, k, :] / piv[:, None]
+            r[:, kk] = 1.0 / piv
+            c = P[:, :, kk].clone()
+            c[:, k] = 0.0
+            P[:, :, kk] = 0.0
+            P.baddbmm_(c[:, :, None], r[:, None, :], alpha=-1.0)
+            P[:, k, :] = r
+        if nb == N:
+            break
+        # rank-nb update of all other columns: W <- W + (G - E_K) W[K, :]
+        G = P.clone()
+        R = W[:, k0:k0 + nb, :].clone()
+        W[:, k0:k0 + nb, :] = 0.0
+        W.baddbmm_(G, R)
+        W[:, :, k0:k0 + nb] = G
     # undo the row swaps as one column gather: out[:, j] = W[:, g[j]]
     g = torch.arange(N, device=W.device).repeat(S, 1)
     perm_h = perm.cpu()
@@ -183,27 +235,44 @@ def _gj_core_plain(W):
             p_ = int(perm_h[s, r_])
             gs[r_], gs[p_] = gs[p_], gs[r_]
         g[s] = torch.tensor(gs, device=W.device)
-    return torch.gather(W, 2, g[:, None, :].expand(S, N, N))
+    return torch.gather(W, 2, g[:, None, :].expand(S, N, N)), perm
 
 
-def _gj_core_cuda(W):
+def _gj_core_cuda(W, panel=None, variant=None):
+    """Launch ``csrc/gj_inverse.cu``: variant 0, the one-block kernel, up
+    to SMALL_N_MAX, else variant 1, the panel path, with
+    ``panel_width(N)``. ``panel`` and ``variant`` override that choice for
+    the card-side checks and tuning; callers leave them alone. Returns the
+    inverse and the pivot rows, (S, N) int32."""
     if not W.is_cuda:
         raise ValueError("gj_inverse kernel needs a CUDA tensor")
     lib = _library()
     S, N, _ = W.shape
-    work = W.contiguous().clone()
-    out = torch.empty_like(work)
-    col = torch.empty((S, N), dtype=torch.float32, device=W.device)
-    perm = torch.empty((S, N), dtype=torch.int32, device=W.device)
-    g = torch.empty((S, N), dtype=torch.int32, device=W.device)
+    if variant is None:
+        variant = 0 if N <= SMALL_N_MAX else 1
+    B = panel_width(N) if panel is None else panel
+    n_f32 = lib.gj_scratch_floats(S, N, B, variant)
+    n_i32 = lib.gj_scratch_ints(S, N, B, variant)
+    if n_f32 <= 0 or n_i32 <= 0:
+        raise ValueError(f"gj_inverse: no kernel for S={S}, N={N}, "
+                         f"panel={B}, variant={variant}")
+    ld = lib.gj_work_pitch(N)
+    # the working copy, rows pitched to a multiple of 4 floats
+    work = torch.empty((S, N, ld), dtype=torch.float32, device=W.device)
+    work[:, :, :N] = W
+    if ld > N:
+        work[:, :, N:] = 0.0
+    out = torch.empty((S, N, N), dtype=torch.float32, device=W.device)
+    fscratch = torch.empty(n_f32, dtype=torch.float32, device=W.device)
+    iscratch = torch.empty(n_i32, dtype=torch.int32, device=W.device)
     with torch.cuda.device(W.device):
         stream = torch.cuda.current_stream(W.device).cuda_stream
         err = lib.gj_inverse_f32(work.data_ptr(), out.data_ptr(),
-                                 col.data_ptr(), perm.data_ptr(),
-                                 g.data_ptr(), S, N, stream)
+                                 fscratch.data_ptr(), iscratch.data_ptr(),
+                                 S, N, B, variant, stream)
     _check(err, "gj_inverse")
     launches["gj_inverse"] += 1
-    return out
+    return out, iscratch[:S * N].view(S, N)
 
 
 def _equilibrated(core, A, equilibrate: bool):
@@ -211,28 +280,30 @@ def _equilibrated(core, A, equilibrate: bool):
     the elimination, inverse unscaled as S inv(A~) S (as the reference's
     ``batched_inverse_pallas(equilibrate=True)``)."""
     if not equilibrate:
-        return core(A)
+        return core(A)[0]
     d = torch.diagonal(A, dim1=1, dim2=2).abs()
     s = torch.rsqrt(torch.clamp_min(d, 1e-30))
-    X = core(A * s[:, :, None] * s[:, None, :])
+    X = core(A * s[:, :, None] * s[:, None, :])[0]
     return X * s[:, :, None] * s[:, None, :]
 
 
 def gj_inverse(A, equilibrate: bool = True):
     """Explicit inverses of a batch of f32 matrices: (S, N, N) -> (S, N, N).
 
-    CUDA tensors launch ``csrc/gj_inverse.cu``; CPU tensors take
-    :func:`gj_inverse_plain`. Any N (no padding)."""
+    CUDA tensors launch ``csrc/gj_inverse.cu`` (the one-block kernel up to
+    N = 512, the panel path above); CPU tensors take
+    :func:`gj_inverse_plain`. Any N, S up to 65,535."""
     _check_square_f32(A)
     core = _gj_core_plain if _route(A) == "cpu" else _gj_core_cuda
     return _equilibrated(core, A, equilibrate)
 
 
-def gj_inverse_plain(A, equilibrate: bool = True):
-    """Plain PyTorch version of :func:`gj_inverse` (same algorithm and
-    roundings), on any device."""
+def gj_inverse_plain(A, equilibrate: bool = True, panel=None):
+    """Plain PyTorch version of :func:`gj_inverse` (the same panel-blocked
+    algorithm; sums rounded in another order), on any device. ``panel``:
+    the panel width, by default the kernel's for this N."""
     _check_square_f32(A)
-    return _equilibrated(_gj_core_plain, A, equilibrate)
+    return _equilibrated(lambda W: _gj_core_plain(W, panel), A, equilibrate)
 
 
 # ---------------------------------------------------------------------------

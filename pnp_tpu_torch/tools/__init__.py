@@ -1,0 +1,1 @@
+"""Card-side scripts of the port (run on a machine with a CUDA device)."""

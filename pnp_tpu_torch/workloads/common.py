@@ -16,6 +16,7 @@ from ..fem.geometry import (VolumeTables, BoundaryTables, build_volume_tables,
 from ..fem import constraints as C
 from ..fem import assembly as A
 from ..operators import boundary as OB
+from ..utils.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -57,14 +58,16 @@ def make_scalar_context(
     quad_order: int,
     boundary_quad_order: int | None = None,
     flux_cylindrical: bool | None = None,
-    device="cpu",
+    device=None,
 ) -> ScalarContext:
-    """Build tables + constraints for one field component on ``device``.
+    """Build tables + constraints for one field component on ``device``
+    (default: the current CUDA device; raises without one).
 
     The quadrature order is raised to 2*degree so higher-order spaces are
     never under-integrated; ``flux_cylindrical`` (default
     ``sys.cylindrical``) sets the axisymmetric weight of the Neumann term.
     """
+    device = resolve_device(device)
     mesh = space.mesh
     quad_order = max(quad_order, 2 * space.degree)
     if boundary_quad_order is None:

@@ -64,6 +64,7 @@ from ..solvers.direct import (batched_inv_f32, inv_f32_setup,
                               make_inv_refine_solver,
                               make_inv_refine_solver_arg)
 from ..solvers.krylov import bicgstab
+from ..utils.device import resolve_device
 from .common import make_scalar_context
 from .pb import solve_pb
 
@@ -135,9 +136,10 @@ def build_pnp_system(
     poisson_inv_threshold: int = 49152,
     species_inv_threshold: int = 0,
     species_two_level: bool = False,
-    device="cpu",
+    device=None,
 ) -> PnpSystem:
-    """Build the production pipeline on ``device``.
+    """Build the production pipeline on ``device`` (default: the current
+    CUDA device; raises without one, see ``utils.device.resolve_device``).
 
     ``stage_reduction``: relative tolerance of the species stage solves
     (reference 1e-5, src/instationary_pnp_from_pb_md.hh:383-386).
@@ -150,6 +152,7 @@ def build_pnp_system(
     ``species_inv_threshold`` > 0 (the reference's TPU-only mid-size
     species tier) is not ported.
     """
+    device = resolve_device(device)
     tab = tableau if tableau is not None else alexander2()
     dt = sys.tau
     pi = sys.pi
@@ -548,9 +551,10 @@ def run_instationary_pnp_from_pb(
     ras_block_size: int = 256,
     ras_refresh_every: Optional[int] = None,
     poisson_inv_threshold: int = 49152,
-    device="cpu",
+    device=None,
 ) -> PnpRunResult:
-    """Run phases A-D on ``device``. ``presolve_potential`` solves Poisson
+    """Run phases A-D on ``device`` (default: the current CUDA device;
+    raises without one). ``presolve_potential`` solves Poisson
     once before the loop (a deviation switch: the reference's first
     species step sees the raw Dirichlet bias jump).
 
@@ -559,6 +563,7 @@ def run_instationary_pnp_from_pb(
     absolute index is a multiple of it (and on the first step run), so a
     resumed run keeps the uninterrupted run's schedule; in between, steps
     reuse it. The dense tier always builds a fresh factor."""
+    device = resolve_device(device)
     n_steps = sys.nSteps if n_steps is None else n_steps
     t_setup = _time.perf_counter()
     system = build_pnp_system(sys, space, tableau, device_mesh,

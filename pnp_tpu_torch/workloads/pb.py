@@ -97,7 +97,9 @@ def make_pb_linear_solver(ctx: ScalarContext, ras_threshold: int = 8192,
 
 def solve_pb(sys: Sysparams, space: FunctionSpace,
              dirichlet_from_config: bool = False, quad_order: int = 3,
-             device="cpu") -> NewtonResult:
+             device=None) -> NewtonResult:
+    """Solve PB on ``device`` (default: the current CUDA device; raises
+    without one)."""
     ctx = make_scalar_context(sys, space, component=0, quad_order=quad_order,
                               device=device)
     u0 = torch.zeros(ctx.ndof, dtype=torch.float64, device=ctx.device)

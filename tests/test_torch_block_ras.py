@@ -330,7 +330,8 @@ def test_pb_newton_block_ras_matches_reference():
     tsys, tspace = problems.pore_case(30, 17)
     jsys = jax_sysparams(tsys)
     jspace = JFS(JST.pore_without_dna_mesh(30, 17), 1)
-    jc, tc = j_context(jsys, jspace, 0, 3), t_context(tsys, tspace, 0, 3)
+    jc = j_context(jsys, jspace, 0, 3)
+    tc = t_context(tsys, tspace, 0, 3, device="cpu")
     kw = dict(reduction=tsys.newtonReduction,
               min_linear_reduction=tsys.newtonMinLinearReduction,
               max_iterations=int(tsys.newtonMaxIterations),

@@ -1,0 +1,57 @@
+"""The port's entry points run on the card unless the caller asks for the
+CPU: without ``device`` they resolve to the current CUDA device and raise
+where there is none (no silent CPU run). The card side of this is in
+tests/test_torch_cuda.py."""
+
+import pytest
+import torch
+
+from pnp_tpu_torch.problems import pore_case
+from pnp_tpu_torch.utils.device import resolve_device
+from pnp_tpu_torch.workloads.common import make_scalar_context
+from pnp_tpu_torch.workloads.instationary_pnp_from_pb import (
+    build_pnp_system, run_instationary_pnp_from_pb)
+from pnp_tpu_torch.workloads.pb import solve_pb
+
+torch.set_num_threads(1)
+
+ENTRY_POINTS = {
+    "run_instationary_pnp_from_pb":
+        lambda s, sp, **kw: run_instationary_pnp_from_pb(s, sp, n_steps=1,
+                                                         **kw),
+    "build_pnp_system": build_pnp_system,
+    "solve_pb": solve_pb,
+    "make_scalar_context":
+        lambda s, sp, **kw: make_scalar_context(s, sp, component=0,
+                                                quad_order=3, **kw),
+}
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_point_default_device_raises_without_cuda(no_cuda, name):
+    sys_, space = pore_case(12, 7)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        ENTRY_POINTS[name](sys_, space)
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_point_runs_on_cpu_when_asked(no_cuda, name):
+    sys_, space = pore_case(12, 7)
+    out = ENTRY_POINTS[name](sys_, space, device="cpu")
+    field = {"run_instationary_pnp_from_pb": lambda r: r.phi,
+             "build_pnp_system": lambda r: r.pb,
+             "solve_pb": lambda r: r.u,
+             "make_scalar_context": lambda r: r.dirichlet}[name](out)
+    assert field.device.type == "cpu" and bool(field.isfinite().all())
+
+
+def test_resolve_device(no_cuda):
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert resolve_device(torch.device("cuda:1")) == torch.device("cuda", 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)

@@ -64,7 +64,7 @@ def test_volume_tables(degree, order):
 def test_scalar_context_and_boundary_tables(component):
     tsys, tspace, jsys, jspace = spaces(1)
     a = j_context(jsys, jspace, component, 3)
-    b = t_context(tsys, tspace, component, 3)
+    b = t_context(tsys, tspace, component, 3, device="cpu")
     for name in ("shape", "qw", "qy", "dofmap", "flux", "neumann"):
         close(getattr(b.bt, name), getattr(a.bt, name), rtol=0, atol=0)
     close(interop.boundary_tables(a.bt).qw, b.bt.qw, rtol=0, atol=0)

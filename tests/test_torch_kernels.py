@@ -1,7 +1,8 @@
 """The port's two kernels on the CPU: their plain versions against the
 reference's Pallas kernels (interpret mode) and plain paths, and the
 wrappers' routing and input checks. Each kernel against its plain version
-on the card: tests/test_torch_cuda.py."""
+on the card: tests/test_torch_cuda.py; the CUDA source of kernel 1 run on
+the host: tests/test_torch_kernel_emulation.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -138,6 +139,87 @@ def test_gj_plain_permuted_case():
     # full-column pivoting is at least as accurate as the in-block pivoting
     assert np.max(np.abs(resid)) <= 2 * np.max(np.abs(resid_pl))
     assert contraction_ok(torch.tensor(A), X)
+
+
+def reversed_rows(S, N):
+    """Well-conditioned, rows reversed: column k's pivot is row N - 1 - k,
+    so the first panel's pivots lie in the last rows, far outside its
+    diagonal block (the cross-block case that pivoting inside a diagonal
+    block cannot serve, pnp_tpu/solvers/direct.py:40-62)."""
+    return well_conditioned(S, N)[:, ::-1].copy()
+
+
+GJ_CASES = {
+    "dominant-128": lambda: well_conditioned(2, 128),
+    "ragged-77": lambda: well_conditioned(2, 77),
+    "permuted-256": permuted,
+    "reversed-150": lambda: reversed_rows(1, 150),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GJ_CASES))
+def test_gj_panel_widths_agree(case):
+    """Panel widths 1 (column by column), 8 and 32 are the same elimination
+    up to rounding: the same pivot rows (no near-ties in these matrices),
+    and inverses that agree with each other and with the f64 inverse
+    (numpy's: LAPACK in f64) to 1e-4 of its scale. f32 round-off times the
+    condition number: measured 3.2e-5 on the permuted matrix, under 2e-6 on
+    the others."""
+    A = GJ_CASES[case]()
+    ref = np.linalg.inv(A.astype(np.float64))
+    scale = np.abs(ref).max()
+    At = torch.tensor(A)
+    Xs = {B: K.gj_inverse_plain(At, equilibrate=False, panel=B)
+          for B in (1, 8, 32)}
+    pivots = {B: K._gj_core_plain(At, B)[1] for B in (1, 8, 32)}
+    for B in (8, 32):
+        assert torch.equal(pivots[B], pivots[1])
+        np.testing.assert_allclose(Xs[B].numpy(), Xs[1].numpy(), rtol=0,
+                                   atol=1e-4 * scale)
+    for B, X in Xs.items():
+        np.testing.assert_allclose(X.double().numpy(), ref, rtol=0,
+                                   atol=1e-4 * scale)
+        assert contraction_ok(At, X), B
+
+
+@pytest.mark.parametrize("S,N,panel", [(2, 20, 32), (1, 5, 64), (1, 1, 32),
+                                       (2, 77, 32), (1, 130, 64)])
+def test_gj_plain_ragged_orders(S, N, panel):
+    """Orders below one panel and orders that are no multiple of the panel
+    width go through the same code: ||AX - I|| at the reference kernel's
+    bar, and equal to the column-by-column elimination to f32 round-off."""
+    A = well_conditioned(S, N)
+    X = K.gj_inverse_plain(torch.tensor(A), panel=panel)
+    resid = (np.einsum("sij,sjk->sik", A.astype(np.float64),
+                       X.double().numpy()) - np.eye(N))
+    assert np.max(np.abs(resid)) < 5e-6
+    X1 = K.gj_inverse_plain(torch.tensor(A), panel=1)
+    np.testing.assert_allclose(X.numpy(), X1.numpy(), rtol=0,
+                               atol=1e-5 * float(X1.abs().max()))
+
+
+def test_gj_plain_cross_block_pivots():
+    """Pivots taken from far below the panel: the rows are swapped whole
+    (finished columns included), the probe passes, and the default panel
+    width finds the pivot rows of the column-by-column elimination."""
+    A = reversed_rows(2, 200)
+    At = torch.tensor(A)
+    pivots = K._gj_core_plain(At)[1]
+    assert torch.equal(pivots, K._gj_core_plain(At, 1)[1])
+    assert int(pivots[0, 0]) == 199 and int(pivots[1, 31]) == 199 - 31
+    X = K.gj_inverse_plain(At)
+    assert contraction_ok(At, X)
+    assert bool(j_contraction_ok(jnp.asarray(A), jnp.asarray(X.numpy())))
+    ref = np.linalg.inv(A.astype(np.float64))
+    np.testing.assert_allclose(X.double().numpy(), ref, rtol=0,
+                               atol=1e-5 * np.abs(ref).max())
+
+
+def test_gj_panel_width_follows_order():
+    """One width per shape class, chosen from N: the one-block kernel's up
+    to its largest order, the panel path's above."""
+    assert K.panel_width(369) == K.panel_width(K.SMALL_N_MAX) == K.SMALL_PANEL
+    assert K.panel_width(K.SMALL_N_MAX + 1) == K.panel_width(12097) == K.PANEL
 
 
 def test_gj_wrapper_routes_and_checks():

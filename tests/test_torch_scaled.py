@@ -56,11 +56,12 @@ def case():
     jspace = JFS(pore_without_dna_mesh(30, 17), 1)
     j_mid = JW.build_pnp_system(jsys, jspace, **RAS)
     pb = interop.field(j_mid.pb)
-    t_mid = TW.build_pnp_system(tsys, tspace, pb_field=pb, **RAS)
+    t_mid = TW.build_pnp_system(tsys, tspace, pb_field=pb, device="cpu",
+                                **RAS)
     j_ras = JW.build_pnp_system(jsys, jspace, pb_field=j_mid.pb,
                                 poisson_inv_threshold=0, **RAS)
     t_ras = TW.build_pnp_system(tsys, tspace, pb_field=pb,
-                                poisson_inv_threshold=0, **RAS)
+                                poisson_inv_threshold=0, **RAS, device="cpu")
     s0 = (j_mid.uphi0, j_mid.ucp0, j_mid.ucm0)
     uphi, _ = j_mid.poisson_solve(*s0)
     return dict(tsys=tsys, tspace=tspace, jsys=jsys, jspace=jspace,
@@ -85,7 +86,8 @@ def test_systems_take_the_block_ras_tier(case):
     A = t_ras.species_local_f32(_t(case["presolved"])[0])
     assert tuple(A.shape) == (2, 8, 103, 103) and A.dtype == torch.float32
     # the port's own PB field through its phase A matches the reference's
-    own = TW.build_pnp_system(case["tsys"], case["tspace"], **RAS)
+    own = TW.build_pnp_system(case["tsys"], case["tspace"], device="cpu",
+                              **RAS)
     assert own.pb_newton_iterations == case["j_mid"].pb_newton_iterations
     assert rel(own.pb, case["j_mid"].pb) <= 1e-10
 
@@ -166,7 +168,8 @@ def test_species_step_reuse_ras(case, two_level):
         kw = dict(pb_field=case["j_mid"].pb, species_two_level=True, **RAS)
         jsys_ = JW.build_pnp_system(case["jsys"], case["jspace"], **kw)
         kw["pb_field"] = interop.field(case["j_mid"].pb)
-        tsys_ = TW.build_pnp_system(case["tsys"], case["tspace"], **kw)
+        tsys_ = TW.build_pnp_system(case["tsys"], case["tspace"],
+                                    device="cpu", **kw)
     else:
         jsys_, tsys_ = case["j_mid"], case["t_mid"]
     js = case["presolved"]
@@ -204,7 +207,7 @@ def runs(case, tmp_path_factory):
         res["t_" + name] = TW.run_instationary_pnp_from_pb(
             case["tsys"], case["tspace"], output_dir=str(out / name),
             checkpoint_path=str(out / f"{name}.npz"), checkpoint_freq=4,
-            **kw)
+            **kw, device="cpu")
     return res, out
 
 
@@ -242,7 +245,8 @@ def test_checkpoint_resume_at_step_4(case, runs):
         resumed = TW.run_instationary_pnp_from_pb(
             case["tsys"], case["tspace"], n_steps=5, presolve_potential=True,
             ras_refresh_every=4, poisson_inv_threshold=pit,
-            checkpoint_path=str(out / f"{tier}.npz"), resume=True, **RAS)
+            checkpoint_path=str(out / f"{tier}.npz"), resume=True, **RAS,
+            device="cpu")
         assert resumed.factor_rebuilt == [True]
         assert len(resumed.current_history) == 1
         for name in ("phi", "cp", "cm"):
@@ -261,7 +265,7 @@ def test_dense_factor_reuse():
     jsys_ = JW.build_pnp_system(jax_sysparams(tsys),
                                 JFS(pore_without_dna_mesh(30, 17), 1))
     tsys_ = TW.build_pnp_system(tsys, tspace,
-                                pb_field=interop.field(jsys_.pb))
+                                pb_field=interop.field(jsys_.pb), device="cpu")
     assert tsys_.factor_kind == jsys_.factor_kind == "dense"
     s0 = (jsys_.uphi0, jsys_.ucp0, jsys_.ucm0)
     js = (jsys_.poisson_solve(*s0)[0], s0[1], s0[2])
@@ -284,11 +288,12 @@ def test_dense_factor_reuse():
 def test_unported_options_raise(case):
     tsys, tspace = case["tsys"], case["tspace"]
     with pytest.raises(NotImplementedError, match="mid-size species"):
-        TW.build_pnp_system(tsys, tspace, species_inv_threshold=20000, **RAS)
+        TW.build_pnp_system(tsys, tspace, species_inv_threshold=20000,
+                            device="cpu", **RAS)
     import dataclasses
     cg = dataclasses.replace(tsys, linearSolver="CG_Jacobi")
     with pytest.raises(NotImplementedError, match="Species Krylov path"):
-        TW.build_pnp_system(cg, tspace, **RAS)
+        TW.build_pnp_system(cg, tspace, **RAS, device="cpu")
 
 
 def test_profiling(tmp_path):

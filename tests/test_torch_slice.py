@@ -48,7 +48,7 @@ def runs(tmp_path_factory):
     tr = TW.run_instationary_pnp_from_pb(
         tsys, tspace, n_steps=STEPS, presolve_potential=True,
         output_dir=str(out / "port"), checkpoint_path=str(out / "ck.npz"),
-        checkpoint_freq=2)
+        checkpoint_freq=2, device="cpu")
     return jr, tr, out, tsys, tspace, jsys, jspace
 
 
@@ -73,7 +73,7 @@ def test_slice_matches_reference(runs):
 def test_pb_field_matches_reference(runs):
     *_, tsys, tspace, jsys, jspace = runs
     jsys_ = JW.build_pnp_system(jsys, jspace)
-    tsys_ = TW.build_pnp_system(tsys, tspace)
+    tsys_ = TW.build_pnp_system(tsys, tspace, device="cpu")
     assert rel(tsys_.pb, jsys_.pb) <= RTOL
     for name in ("uphi0", "ucp0", "ucm0"):
         assert rel(getattr(tsys_, name), getattr(jsys_, name)) <= RTOL
@@ -88,7 +88,8 @@ def test_pb_field_matches_reference(runs):
     assert rel(A32, jsys_.species_dense_f32(state_j[0])) <= 1e-6   # f32
     # the reference's PB field carried across skips the port's phase A
     carried = TW.build_pnp_system(tsys, tspace,
-                                  pb_field=interop.field(jsys_.pb))
+                                  pb_field=interop.field(jsys_.pb),
+                                  device="cpu")
     assert carried.pb_newton_iterations == 0
     assert rel(carried.ucm0, jsys_.ucm0) <= RTOL
 
@@ -113,7 +114,7 @@ def test_checkpoint_resume(runs):
     _, tr, out, tsys, tspace, *_ = runs
     resumed = TW.run_instationary_pnp_from_pb(
         tsys, tspace, n_steps=STEPS, presolve_potential=True,
-        checkpoint_path=str(out / "ck.npz"), resume=True)
+        checkpoint_path=str(out / "ck.npz"), resume=True, device="cpu")
     assert len(resumed.current_history) == STEPS - 2
     for name in ("phi", "cp", "cm"):
         assert rel(getattr(resumed, name), getattr(tr, name)) <= 1e-13
@@ -135,7 +136,7 @@ def test_non_finite_guard(runs, monkeypatch):
     ck = str(out / "guard.npz")
     with pytest.raises(FloatingPointError, match="non-finite"):
         TW.run_instationary_pnp_from_pb(tsys, tspace, n_steps=1,
-                                        checkpoint_path=ck)
+                                        checkpoint_path=ck, device="cpu")
     assert os.path.exists(ck + ".emergency")
 
 
@@ -143,27 +144,28 @@ def test_unported_tiers_raise():
     """Above the dense threshold the block-RAS tier now builds; the
     options that are still unported raise, naming their ROADMAP item."""
     tsys, tspace = problems.pore_case(30, 17)
-    system = TW.build_pnp_system(tsys, tspace, dense_poisson_threshold=100)
+    system = TW.build_pnp_system(tsys, tspace, dense_poisson_threshold=100,
+                                 device="cpu")
     assert (system.factor_kind, system.poisson_tier) == ("ras", "inverse")
     assert system.block_context.K == 2
     with pytest.raises(NotImplementedError, match="mid-size species"):
         TW.build_pnp_system(tsys, tspace, dense_poisson_threshold=100,
-                            species_inv_threshold=1000)
+                            species_inv_threshold=1000, device="cpu")
     with pytest.raises(NotImplementedError, match="Multi-device"):
-        TW.build_pnp_system(tsys, tspace, device_mesh=object())
+        TW.build_pnp_system(tsys, tspace, device_mesh=object(), device="cpu")
     skewed = Tableau("skewed", A=np.array([[-1.0, 1.0, 0.0],
                                            [-1.0, 0.0, 1.0]]),
                      B=np.array([[0.0, 0.3, 0.0], [0.0, 0.5, 0.4]]),
                      D=np.array([0.0, 0.3, 1.0]), implicit=True)
     with pytest.raises(NotImplementedError, match="Krylov"):
-        TW.build_pnp_system(tsys, tspace, tableau=skewed)
+        TW.build_pnp_system(tsys, tspace, tableau=skewed, device="cpu")
 
 
 def test_cpu_run_launches_no_kernel(runs):
     """The CPU path takes the plain versions: the counters stay put."""
     _, _, _, tsys, tspace, *_ = runs
     K.reset_launch_counts()
-    TW.run_instationary_pnp_from_pb(tsys, tspace, n_steps=1)
+    TW.run_instationary_pnp_from_pb(tsys, tspace, n_steps=1, device="cpu")
     assert set(K.launches.values()) == {0}
 
 
@@ -174,11 +176,11 @@ def test_port_never_imports_jax():
             "from pnp_tpu_torch.workloads.instationary_pnp_from_pb import "
             "run_instationary_pnp_from_pb\n"
             "r = run_instationary_pnp_from_pb(*pore_case(30, 17), n_steps=1,"
-            " presolve_potential=True)\n"
+            " presolve_potential=True, device='cpu')\n"
             "assert bool(r.phi.isfinite().all())\n"
             "b = run_instationary_pnp_from_pb(*pore_case(30, 17), n_steps=1,"
             " presolve_potential=True, dense_poisson_threshold=0,"
-            " ras_block_size=64, poisson_inv_threshold=0)\n"
+            " ras_block_size=64, poisson_inv_threshold=0, device='cpu')\n"
             "assert b.system.factor_kind == 'ras' and "
             "b.system.poisson_tier == 'ras'\n"
             "assert bool(b.phi.isfinite().all())\n"

@@ -44,7 +44,8 @@ def systems():
     non-symmetric mass + drift-diffusion one, conditioned well enough that
     every variant takes the same iteration count in both packages."""
     tsys, tspace, jsys, jspace = spaces(1)
-    tc, jc = t_context(tsys, tspace, 0, 3), j_context(jsys, jspace, 0, 3)
+    tc = t_context(tsys, tspace, 0, 3, device="cpu")
+    jc = j_context(jsys, jspace, 0, 3)
     u = 0.3 * np.sin(0.05 * np.arange(tspace.ndof))
     ue_t, ue_j = torch.tensor(u)[tc.dofmap], jnp.asarray(u)[jc.dofmap]
     gt = torch.einsum("ei,eqid->eqd", ue_t, tc.vt.gradphi)
@@ -152,7 +153,7 @@ def test_solve_pb_matches_reference(reassemble):
     tsys, tspace, jsys, jspace = spaces(1)
     tsys = dataclasses.replace(tsys, newtonReassembleThreshold=reassemble)
     jsys = dataclasses.replace(jsys, newtonReassembleThreshold=reassemble)
-    rt, rj = t_solve_pb(tsys, tspace), j_solve_pb(jsys, jspace)
+    rt, rj = t_solve_pb(tsys, tspace, device="cpu"), j_solve_pb(jsys, jspace)
     assert rt.converged and rj.converged
     assert (rt.iterations, rt.linear_iterations, rt.jacobian_builds) == \
         (rj.iterations, rj.linear_iterations, rj.jacobian_builds)
@@ -206,7 +207,8 @@ def test_inverse_refinement_matches_reference():
     """Refinement against the exact f64 element operator with the same f32
     inverse on both sides: same count, same solution."""
     tsys, tspace, jsys, jspace = spaces(1)
-    tc, jc = t_context(tsys, tspace, 1, 2), j_context(jsys, jspace, 1, 2)
+    tc = t_context(tsys, tspace, 1, 2, device="cpu")
+    jc = j_context(jsys, jspace, 1, 2)
     A_t = TV.mass_jacobian_el(tc.vt) + 0.5 * TV.laplace_jacobian_el(tc.vt)
     A_j = JV.mass_jacobian_el(jc.vt) + 0.5 * JV.laplace_jacobian_el(jc.vt)
     A_t2, A_j2 = torch.stack([A_t, 2 * A_t]), jnp.stack([A_j, 2 * A_j])
