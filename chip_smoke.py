@@ -18,8 +18,11 @@ result line:
    of the panel width, and a matrix whose first pivots lie in its last
    rows (far outside the first panel's diagonal block);
 4. kernel 2 (fused PB element residual + Jacobian) against its plain
-   version at E = 9200 in f64, with its device time from the profiler
-   beside the wrapper's;
+   version at E = 9200 in f64, in its three output variants (both, the
+   residual alone, the Jacobian alone) through the prepared ``PBElement``
+   the main path calls: the device time of each (profiler), the time of a
+   call with the wrapper included, the share of the bound reached, and the
+   floor (an empty kernel on the same grid, launched the same way);
 5. the whole slice on ``pore_case(30, 17)``, CUDA against the CPU plain
    path, to 1e-9 relative;
 6. the main path: ``run_instationary_pnp_from_pb`` on ``pore_case(100, 55)``
@@ -33,11 +36,20 @@ result line:
 8. the block-RAS main path: ``run_instationary_pnp_from_pb`` on
    ``pore_case(160, 88)`` (12,097 nodes, 23,552 triangles), 8 presolved
    steps (two refresh windows), with every kernel launch counted;
+8b. the species Krylov path: the same case with a tableau whose stage
+   diagonals differ (three implicit-Euler substeps of unequal length; no
+   factor serves every stage, so each stage builds its own local inverses:
+   kernel 1 three times a step at (96, 369, 369)), 3 presolved steps with
+   every launch counted (``[species-Krylov main]``), and the same path on
+   ``pore_case(30, 17)``, CUDA against CPU, to 1e-9 with iteration counts
+   within one (``[species-Krylov parity]``). ``fractional_step_theta()``
+   has three stages but one stage diagonal, so it runs phase 8's factored
+   path and not this one;
 9. both kernels at the shapes that run gave them, on inputs built from its
    system: kernel 1 against its plain version on the (96, 369, 369)
    species RAS local batch at the presolved potential and on the
    (1, 12097, 12097) constant Poisson matrix of the mid-size tier, kernel
-   2 at E = 23,552;
+   2's three variants at E = 23,552;
 10. a per-phase breakdown on the run's final state (species factor,
     species stages on a reused factor, Poisson re-solve), a
     ``torch.profiler`` trace of one factor step and one reuse step
@@ -45,8 +57,10 @@ result line:
     two-level RAS Poisson tier on the same state against the mid-size tier.
 
 The next-to-last line is ``{"kernels": [...]}``: per kernel its launches
-in phase 6 (and in phase 8 as ``launches_block_ras``), the error and
-times measured in phases 3-4, its bound on this card (``bound_ms``, the
+in phase 6 (in phase 8 as ``launches_block_ras``, in phase 8b as
+``launches_species_krylov``), the error and times measured in phases 3-4
+(kernel 2: the two-output variant, the one-output variants under
+``variants``), its bound on this card (``bound_ms``, the
 larger of bytes once in and once out over 3.35 TB/s and operations over
 the peak rate of their type; ``bound_by`` says which) and ``library_ms``;
 the same keys for the block-RAS run's shapes under ``block_ras_shape``
@@ -75,6 +89,7 @@ RAS_SHAPE = (12097, 23552, 48, 369)       # nodes, triangles, K, L
 RAS_STEPS = 8
 RAS_REFRESH = 4
 PARITY_STEPS = 5
+KRYLOV_STEPS = 3
 # the mid-size and two-level Poisson tiers solve to 1e-10 relative
 # residual; their solutions agree to 1e-8 (the reference's cross-tier
 # bound, tests/test_block_ras.py:279)
@@ -147,14 +162,17 @@ def gj_bound(S: int, N: int):
     return bound(2.0 * S * N ** 3, PEAK_F32, 8.0 * S * N * N)
 
 
-def pb_bound(E: int, n: int, q: int):
+def pb_bound(E: int, n: int, q: int, outputs: str = "both"):
     """Per element in f64: ue, gradphi, qw, qy in, r and A out (47 values at
     n = 3, q = 4), the shape table once; per quadrature point 6n flop of
     interpolation, ~45 for sinh, cosh and the weights, 8n for the residual
-    and 8n^2 for the Jacobian."""
-    values = E * (n + 2 * q * n + 2 * q + n + n * n) + q * n
-    return bound(E * q * (14.0 * n + 8.0 * n * n + 45.0), PEAK_F64,
-                 8.0 * values)
+    and 8n^2 for the Jacobian. A one-output variant: its own output's bytes
+    and flop alone."""
+    wants_r, wants_A = outputs != "jacobian", outputs != "residual"
+    values = (E * (n + 2 * q * n + 2 * q + n * wants_r + n * n * wants_A)
+              + q * n)
+    flop = E * q * (6.0 * n + 45.0 + 8.0 * n * wants_r + 8.0 * n * n * wants_A)
+    return bound(flop, PEAK_F64, 8.0 * values)
 
 
 def gj_shape_check(torch, K, contraction_ok, A, label: str, reps: int,
@@ -192,42 +210,86 @@ def gj_shape_check(torch, K, contraction_ok, A, label: str, reps: int,
             "library_ms": lib_ms, "library_rel_diff": lib_rel}
 
 
+PB_VARIANTS = {"both": 3, "residual": 1, "jacobian": 2}
+
+
 def pb_check(torch, K, args, E_want: int) -> dict:
-    """Kernel 2 against its plain version on ``args`` (f64): error, the
-    wrapper-inclusive times (CUDA events around whole calls) and the
-    kernel's own device time from a profiler trace of 20 calls."""
-    r_k, A_k = K.pb_residual_jacobian(*args)
-    r_p, A_p = K.pb_residual_jacobian_plain(*args)
-    err = max(float((r_k - r_p).abs().max()), float((A_k - A_p).abs().max()))
-    rel = max(rel_err(r_k, r_p), rel_err(A_k, A_p))
-    ms = cuda_ms(torch, lambda: K.pb_residual_jacobian(*args), 50)
-    plain_ms = cuda_ms(torch, lambda: K.pb_residual_jacobian_plain(*args), 50)
+    """Kernel 2's three output variants against the plain version on
+    ``args`` (f64), through the prepared ``PBElement`` the main path calls:
+    error, the wrapper-inclusive time (CUDA events around whole calls), the
+    kernel's own device time (a profiler trace of 20 calls, by the
+    instance's name) and the share of its bound that reaches; beside them
+    the checked ``pb_residual_jacobian`` and the floor, an empty kernel on
+    the same grid launched the same way."""
+    import re
+
+    ue, tables, params = args[0], args[1:5], args[5:]
+    E, n = ue.shape
+    q = tables[0].shape[0]
+    check(E == E_want, f"pb_residual_jacobian: E = {E}, not {E_want}")
+    plan = K.PBElement(*tables, *params)
+    lib = K._library()
+    index = torch.cuda.current_device()
+    tpe, _, threads = K.PB_DESIGN
+    blocks = -(-E // (threads // tpe))
+    raw_stream = K._raw_stream_of(ue.device)
+    empty = lambda: lib.pb_empty_launch(blocks, threads, index, raw_stream())
+    out = {}
+    for name in PB_VARIANTS:
+        got = plan(ue, name)
+        want = K.pb_residual_jacobian_plain(*args, outputs=name)
+        check(all((g is None) == (w is None) for g, w in zip(got, want)),
+              f"pb_residual_jacobian {name}: wrong outputs")
+        pairs = [(g, w) for g, w in zip(got, want) if w is not None]
+        b_ms, b_by = pb_bound(E, n, q, name)
+        out[name] = {
+            "max_abs_err": max(float((g - w).abs().max()) for g, w in pairs),
+            "rel_err": max(rel_err(g, w) for g, w in pairs),
+            "ms": cuda_ms(torch, lambda: plan(ue, name), 200),
+            "plain_ms": cuda_ms(torch, lambda: K.pb_residual_jacobian_plain(
+                *args, outputs=name), 50),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    checked_ms = cuda_ms(torch, lambda: K.pb_residual_jacobian(*args), 200)
+    empty_call_ms = cuda_ms(torch, empty, 200)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
+        for name in PB_VARIANTS:
+            for _ in range(20):
+                plan(ue, name)
         for _ in range(20):
-            K.pb_residual_jacobian(*args)
+            empty()
         torch.cuda.synchronize()
-    own = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and "pb_element_kernel" in e.key]
-    n_own = sum(e.count for e in own)
-    check(n_own > 0, "pb_element_kernel not found in the profiler trace: "
-          f"{sorted(e.key[:40] for e in prof.key_averages())}")
-    device_ms = sum(e.self_device_time_total for e in own) / n_own / 1e3
-    E, n = args[0].shape
-    q = args[1].shape[0]
-    b_ms, b_by = pb_bound(E, n, q)
-    print(f"[kernel pb_residual_jacobian] E={E} f64: max abs err vs plain "
-          f"{err:.3e} (rel {rel:.3e}, tol {PB_REL_TOL:g}); kernel "
-          f"{ms:.4f} ms a call (wrapper included), {device_ms:.4f} ms on the "
-          f"device (profiler), plain {plain_ms:.4f} ms; bound {b_ms:.5f} ms "
-          f"by {b_by}; no single PyTorch call computes it", flush=True)
-    check(E == E_want and rel <= PB_REL_TOL, f"pb_residual_jacobian at E = "
-          f"{E}")
-    return {"E": E, "max_abs_err": err, "ms": ms, "device_ms": device_ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None}
+    device = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        m = re.search(r"pb_element_kernel<\w+, \d+, (\d+),", e.key)
+        if m or "pb_empty_kernel" in e.key:
+            device[int(m.group(1)) if m else 0] = (
+                e.self_device_time_total / e.count / 1e3)
+    check(set(device) == {0, 1, 2, 3}, "kernel 2's instances not found in "
+          f"the profiler trace: {sorted(e.key[:60] for e in prof.key_averages())}")
+    for name, code in PB_VARIANTS.items():
+        v = out[name]
+        v["device_ms"] = device[code]
+        v["bound_share"] = v["bound_ms"] / v["device_ms"]
+        print(f"[kernel pb_residual_jacobian] E={E} f64 {name}: max abs err "
+              f"vs plain {v['max_abs_err']:.3e} (rel {v['rel_err']:.3e}, tol "
+              f"{PB_REL_TOL:g}); {v['ms']:.4f} ms a call (wrapper included), "
+              f"{v['device_ms']:.4f} ms on the device (profiler), plain "
+              f"{v['plain_ms']:.4f} ms; bound {v['bound_ms']:.5f} ms by "
+              f"{v['bound_by']} ({100 * v['bound_share']:.1f} % reached)")
+        check(v["rel_err"] <= PB_REL_TOL, f"pb_residual_jacobian {name} at "
+              f"E = {E}")
+    print(f"[kernel pb_residual_jacobian] E={E}: the checked function "
+          f"{checked_ms:.4f} ms a call; floor: an empty kernel of {blocks} "
+          f"blocks x {threads} threads {device[0]:.4f} ms on the device, "
+          f"{empty_call_ms:.4f} ms a call through ctypes; no single PyTorch "
+          "call computes it", flush=True)
+    return {"E": E, **out["both"], "checked_ms": checked_ms,
+            "empty_device_ms": device[0], "empty_call_ms": empty_call_ms,
+            "variants": {k: out[k] for k in ("residual", "jacobian")}}
 
 
 def nvidia_smi() -> str:
@@ -402,6 +464,89 @@ def ras_main(torch, K, W, direct, pore_case, dev):
     return res, counts
 
 
+def krylov_main(torch, K, W, direct, tableau, pore_case, dev) -> dict:
+    """Phase 8b: the species Krylov path at full size (every stage its own
+    local inverses), with every kernel launch counted, then its parity on
+    the small case, CUDA against CPU. Returns the launch counts."""
+    nodes, tris, n_blocks, L = RAS_SHAPE
+    sys_r, space_r = pore_case(*RAS_CASE)
+    stages = tableau.stages
+    K.reset_launch_counts()
+    direct.probe_failures["count"] = 0
+    res = W.run_instationary_pnp_from_pb(
+        sys_r, space_r, n_steps=KRYLOV_STEPS, tableau=tableau,
+        presolve_potential=True, device=dev, **RAS_KW)
+    counts = dict(K.launches)
+    failures = direct.probe_failures["count"]
+    system = res.system
+    ctx = system.block_context
+    print(f"[species-Krylov main] pore_case{RAS_CASE}, {tableau.name} "
+          f"({stages} stages, diagonals differ): {nodes} dofs; factor kind "
+          f"{system.factor_kind}, Poisson tier {system.poisson_tier}, K "
+          f"{ctx.K} L {ctx.L}: each stage inverts a ({2 * ctx.K}, {ctx.L}, "
+          f"{ctx.L}) batch")
+    print("[species-Krylov main] step ms "
+          + " ".join(f"{t:.2f}" for t in res.step_ms)
+          + f"; species its per step {res.species_iterations}; Poisson "
+          f"refinements {res.poisson_iterations}; setup (A-C) "
+          f"{1e3 * res.setup_seconds:.1f} ms")
+    print(f"[species-Krylov main] launches {counts}, probe failures "
+          f"{failures}", flush=True)
+    check((system.factor_kind, system.poisson_tier) == (None, "inverse")
+          and system.species_factor is None
+          and (ctx.K, ctx.L) == (n_blocks, L), "species Krylov path not taken")
+    check(all(tuple(v.shape) == (nodes,) and bool(torch.isfinite(v).all())
+              for v in (res.phi, res.cp, res.cm)),
+          "non-finite or misshapen final state")
+    check(len(res.current_history) == KRYLOV_STEPS
+          and all(math.isfinite(v) for _, a, b in res.current_history
+                  for v in (*a, *b)), "currents")
+    check(res.factor_rebuilt == [True] * KRYLOV_STEPS, "factor reuse on a "
+          "path that has no factor")
+    check(failures == 0, f"{failures} contraction-probe failures")
+    # kernel 1: phase A's Jacobian factors (at most one a Newton iteration),
+    # the Poisson inverse, and one launch a stage
+    setup = counts["gj_inverse"] - stages * KRYLOV_STEPS
+    check(1 <= setup <= 1 + res.pb_newton_iterations,
+          f"gj_inverse launched {counts['gj_inverse']} times: not "
+          f"{stages} a step beside the setup's")
+    check(counts["pb_residual_jacobian"] > 0, "kernel 2 was not launched")
+    K.reset_launch_counts()
+    system.species_step(res.phi, res.cp, res.cm)
+    torch.cuda.synchronize(dev)
+    check(K.launches == {"gj_inverse": stages, "pb_residual_jacobian": 0},
+          f"one species step launched {K.launches}, not kernel 1 once a "
+          "stage")
+
+    sys_s, space_s = pore_case(30, 17)
+    run = lambda d: W.run_instationary_pnp_from_pb(
+        sys_s, space_s, n_steps=KRYLOV_STEPS, tableau=tableau,
+        presolve_potential=True, dense_poisson_threshold=0,
+        ras_block_size=64, device=d)
+    g, c = run(dev), run("cpu")
+    errs = {n: rel_err(getattr(g, n).cpu(), getattr(c, n))
+            for n in ("phi", "cp", "cm")}
+    cur = max(rel_err(torch.tensor(a), torch.tensor(b))
+              for (_, *x), (_, *y) in zip(g.current_history,
+                                          c.current_history)
+              for a, b in zip(x, y))
+    its = {d: (r.species_iterations, r.poisson_iterations)
+           for d, r in (("cuda", g), ("cpu", c))}
+    print(f"[species-Krylov parity] pore_case(30, 17), {KRYLOV_STEPS} "
+          f"presolved steps, CUDA vs CPU: rel err phi {errs['phi']:.3e} cp "
+          f"{errs['cp']:.3e} cm {errs['cm']:.3e} currents {cur:.3e} (tol "
+          f"{SLICE_REL_TOL:g}); species its / Poisson refinements per step: "
+          f"cuda {its['cuda']} cpu {its['cpu']}", flush=True)
+    check(g.system.factor_kind is None and c.system.factor_kind is None,
+          "species Krylov parity: a factored path was taken")
+    # counts within one: atomic assembly on the card (see ras_parity)
+    check(max(abs(a - b) for xs, ys in zip(its["cuda"], its["cpu"])
+              for a, b in zip(xs, ys)) <= 1, "species Krylov parity: "
+          "iteration counts differ by more than one")
+    check(max(*errs.values(), cur) <= SLICE_REL_TOL, "species Krylov parity")
+    return counts
+
+
 def ras_kernel_checks(torch, K, direct, FA, V, make_scalar_context, system,
                       dev) -> dict:
     """Phase 9: both kernels at the shapes the block-RAS main path gave
@@ -524,7 +669,7 @@ def main() -> int:
         from pnp_tpu_torch.fem import assembly as FA
         from pnp_tpu_torch.operators import kernels as K
         from pnp_tpu_torch.operators import volume as V
-        from pnp_tpu_torch.problems import pore_case
+        from pnp_tpu_torch.problems import pore_case, substeps_tableau
         from pnp_tpu_torch.solvers import direct
         from pnp_tpu_torch.utils.profiling import PhaseTimer, maybe_trace
         from pnp_tpu_torch.workloads.common import make_scalar_context
@@ -643,6 +788,8 @@ def main() -> int:
     # ---- 7-10. the block-RAS tier -------------------------------------------
     ras_parity(torch, W, pore_case, dev)
     ras_res, ras_counts = ras_main(torch, K, W, direct, pore_case, dev)
+    kry_counts = krylov_main(torch, K, W, direct, substeps_tableau(),
+                             pore_case, dev)
     ras_k = ras_kernel_checks(torch, K, direct, FA, V, make_scalar_context,
                               ras_res.system, dev)
     ras_breakdown(torch, W, PhaseTimer, maybe_trace, ras_res, dev)
@@ -657,14 +804,16 @@ def main() -> int:
          "launches": counts["gj_inverse"], **{k: gj[k] for k in keys},
          "shape": gj["shape"], "library_rel_diff": gj["library_rel_diff"],
          "launches_block_ras": ras_counts["gj_inverse"],
+         "launches_species_krylov": kry_counts["gj_inverse"],
          "block_ras_shape": ras_k["gj"],
          "poisson_shape": ras_k["gj_poisson"]},
         {"name": "pb_residual_jacobian", "route": "cuda",
          "source": "pnp_tpu_torch/csrc/pb_element.cu",
          "replaces": "pnp_tpu/operators/pallas_kernels.py:105",
          "launches": counts["pb_residual_jacobian"],
-         **{k: pb[k] for k in keys}, "device_ms": pb["device_ms"],
+         **{k: v for k, v in pb.items() if k != "E"},
          "launches_block_ras": ras_counts["pb_residual_jacobian"],
+         "launches_species_krylov": kry_counts["pb_residual_jacobian"],
          "block_ras_shape": ras_k["pb"]},
     ]
     print(json.dumps({"kernels": kernels}))

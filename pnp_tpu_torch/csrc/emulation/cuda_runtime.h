@@ -5,6 +5,8 @@
 //   g++ -std=c++20 -O1 -pthread -shared -fPIC -x c++ -DGJ_HOST_EMULATION \
 //       -I pnp_tpu_torch/csrc/emulation pnp_tpu_torch/csrc/gj_inverse.cu
 //
+// (pb_element.cu: -DPB_HOST_EMULATION.)
+//
 // One std::thread per CUDA thread of a block; the blocks of a launch run one
 // after another; __syncthreads and the warp shuffles are barriers; __shared__
 // is a function-local static (blocks never overlap). It says nothing about
@@ -36,6 +38,11 @@ using cudaStream_t = void*;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaGetDevice(int* device) {
+  *device = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
 template <class F>
 cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
   return cudaSuccess;
@@ -54,7 +61,7 @@ namespace emulation {
 struct BlockState {
   std::barrier<> all;
   std::vector<std::unique_ptr<std::barrier<>>> warps;
-  std::vector<std::uint32_t> lanes;
+  std::vector<std::uint64_t> lanes;
   std::vector<float4> smem;
   explicit BlockState(int threads, std::size_t smem_bytes)
       : all(threads), lanes(threads), smem(smem_bytes / 16 + 1) {
@@ -109,13 +116,13 @@ inline void __syncthreads() { emulation::state->all.arrive_and_wait(); }
 // every lane of the warp must call it (full mask, converged)
 template <class T>
 T __shfl_xor_sync(unsigned, T v, int lane_mask) {
-  static_assert(sizeof(T) == 4);
+  static_assert(sizeof(T) == 4 || sizeof(T) == 8);
   auto& st = *emulation::state;
   const int t = emulation::linear_tid;
-  std::memcpy(&st.lanes[t], &v, 4);
+  std::memcpy(&st.lanes[t], &v, sizeof(T));
   st.warps[t / 32]->arrive_and_wait();
   T r;
-  std::memcpy(&r, &st.lanes[t ^ lane_mask], 4);
+  std::memcpy(&r, &st.lanes[t ^ lane_mask], sizeof(T));
   st.warps[t / 32]->arrive_and_wait();
   return r;
 }

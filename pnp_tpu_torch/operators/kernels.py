@@ -16,9 +16,14 @@ kernels there become CUDA C++ kernels in ``pnp_tpu_torch/csrc/``:
   is the 2 N^3 f32 flop a matrix on the FMA pipe; the source's header
   note has the design and its measured times. The plain version is the
   same algorithm in torch ops, with the panel width as an argument;
-* :func:`pb_residual_jacobian` (``csrc/pb_element.cu``) replaces
-  ``pb_residual_jacobian_pallas``: the fused PB element residual and
-  Jacobian.
+* :func:`pb_residual_jacobian` and :class:`PBElement`
+  (``csrc/pb_element.cu``) replace ``pb_residual_jacobian_pallas``: the
+  fused PB element residual and Jacobian, either alone or both. The kernel
+  is latency-bound at the path's sizes (its bytes take 1-3 us on an H100):
+  four threads an element, one ``expm1`` for ``sinh`` and ``cosh``, the
+  upper triangle of A alone accumulated; :class:`PBElement` holds what
+  does not change from call to call. The plain version is the same
+  arithmetic in torch ops.
 
 Build: at first use one ``nvcc`` per ``csrc/*.cu``, all started together,
 then one link into a shared library with a plain C interface, in
@@ -44,8 +49,6 @@ import time
 
 import torch
 
-from ..fem.geometry import VolumeTables
-from . import volume as V
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -76,13 +79,17 @@ def _nvcc() -> str:
     return path
 
 
-def build() -> dict:
+def build(defines=()) -> dict:
     """Compile ``csrc/*.cu`` (if not built yet for these sources) and load
     the library. Returns {"path", "seconds", "cached", "log"}; ``log``
-    holds ptxas' register/spill report of a fresh build."""
+    holds ptxas' register/spill report of a fresh build. ``defines``:
+    extra ``-D`` flags (``tools/pb_sweep.py`` builds kernel 2's every
+    design with ``-DPB_ALL_DESIGNS``); the library they give replaces the
+    loaded one for this process."""
     global _lib
     sources = sorted(CSRC.glob("*.cu"))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    flags = [*NVCC_FLAGS, *defines]
+    h = hashlib.sha256(" ".join(flags).encode())
     for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -99,7 +106,7 @@ def build() -> dict:
         tmp = out_dir / f"libpnp_kernels.{pid}.so"
         try:
             procs = [subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                [nvcc, *flags, "-c", str(src), "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
                 for src, obj in zip(sources, objs)]
             outs = [(p.communicate()[0], p.returncode) for p in procs]
@@ -138,12 +145,19 @@ def _bind_gj(lib):
 
 
 def _bind(lib):
-    p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     _bind_gj(lib)
+    return _bind_pb(lib)
+
+
+def _bind_pb(lib):
+    """Argument types of ``csrc/pb_element.cu``'s C interface."""
+    p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for name in ("pb_element_f64", "pb_element_f32"):
         fn = getattr(lib, name)
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, d, i, d, p]
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, d, i, d, i, i, i, i, i, p]
         fn.restype = i
+    lib.pb_empty_launch.argtypes = [i, i, i, p]
+    lib.pb_empty_launch.restype = i
     return lib
 
 
@@ -157,6 +171,21 @@ def _check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} "
                            f"({torch.cuda.get_device_name()})")
+
+
+def _raw_stream_of(device):
+    """A function that returns the current stream's handle on ``device``,
+    an int for ctypes. The public ``torch.cuda.current_stream`` builds a
+    ``Stream`` object on every call, several times the cost of the one
+    lookup that a launch needs; torch's own generated code reads the handle
+    the same way."""
+    device = torch.device(device)
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return lambda: torch.cuda.current_stream(index).cuda_stream
+    return lambda: raw(index)
 
 
 def _route(t: torch.Tensor) -> str:
@@ -310,58 +339,159 @@ def gj_inverse_plain(A, equilibrate: bool = True, panel=None):
 # Kernel 2: fused PB element residual + Jacobian (csrc/pb_element.cu)
 # ---------------------------------------------------------------------------
 
-def _check_pb(ue, shape, gradphi, qw, qy) -> None:
-    if ue.ndim != 2 or ue.shape[1] not in (3, 6, 10):
-        raise ValueError(f"ue must be (E, n) with n in 3, 6, 10; got "
-                         f"{tuple(ue.shape)}")
-    E, n = ue.shape
-    q = shape.shape[0]
-    want = {"shape": (q, n), "gradphi": (E, q, n, 2), "qw": (E, q),
-            "qy": (E, q)}
-    for name, t in (("shape", shape), ("gradphi", gradphi), ("qw", qw),
-                    ("qy", qy)):
+#: what a call returns: the residual alone, the Jacobian alone, or both
+PB_OUTPUTS = {"residual": 1, "jacobian": 2, "both": 3}
+# the design settled on the H100 (tools/pb_sweep.py): threads an element,
+# staged through shared memory (0 or 1), threads a block; the first two
+# are the one design csrc/pb_element.cu compiles unless built with
+# -DPB_ALL_DESIGNS
+PB_DESIGN = (4, 0, 128)
+
+
+def _check_pb_tables(shape, gradphi, qw, qy) -> None:
+    if shape.ndim != 2 or shape.shape[1] not in (3, 6, 10):
+        raise ValueError(f"shape must be (q, n) with n in 3, 6, 10; got "
+                         f"{tuple(shape.shape)}")
+    q, n = shape.shape
+    E = gradphi.shape[0]
+    want = {"gradphi": (E, q, n, 2), "qw": (E, q), "qy": (E, q)}
+    for name, t in (("gradphi", gradphi), ("qw", qw), ("qy", qy)):
         if tuple(t.shape) != want[name]:
             raise ValueError(f"{name} must be {want[name]}, got "
                              f"{tuple(t.shape)}")
-        if t.dtype != ue.dtype or t.device != ue.device:
-            raise ValueError(f"{name} must match ue's dtype and device")
-    if ue.dtype not in (torch.float32, torch.float64):
+        if t.dtype != shape.dtype or t.device != shape.device:
+            raise ValueError(f"{name} must match shape's dtype and device")
+    if shape.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"pb_residual_jacobian takes f32 or f64, got "
-                         f"{ue.dtype}")
+                         f"{shape.dtype}")
+
+
+def _check_pb_ue(ue, E, n, dtype, device) -> None:
+    if (tuple(ue.shape) != (E, n) or ue.dtype != dtype
+            or ue.device != device):
+        raise ValueError(f"ue must be {(E, n)} {dtype} on {device}, got "
+                         f"{tuple(ue.shape)} {ue.dtype} on {ue.device}")
+
+
+def _aligned(t):
+    """``t`` contiguous and on a 16-byte boundary (the kernel's vector
+    loads), copied only if it is not."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def sinh_cosh_one_exp(u):
+    """sinh(u) and cosh(u) from one ``expm1``, as ``csrc/pb_element.cu``
+    computes them: with m = expm1(|u|) and e = m + 1, sinh|u| =
+    m (m + 2) / (2 e) and cosh u = 1 + m^2 / (2 e). No cancellation near 0
+    (``(e - 1/e) / 2`` loses every digit there)."""
+    m = torch.expm1(u.abs())
+    h = 0.5 / (m + 1.0)
+    return torch.copysign(m * ((m + 2.0) * h), u), 1.0 + m * (m * h)
+
+
+class PBElement:
+    """Kernel 2 prepared for one set of tables: shapes, dtypes and devices
+    checked once, the tables contiguous and their pointers, the C function,
+    the device index and ``8 pi l_b c0`` held, so that a call does only
+    what depends on ``ue``: allocate what it returns, look up the stream,
+    one C call.
+
+    ``plan(ue, outputs)`` returns ``(r, A)``, ``None`` for the one not
+    asked for (``outputs``: "residual", "jacobian" or "both"); ue (E, n),
+    shape (q, n), gradphi (E, q, n, 2), qw/qy (E, q), all f64 (or all f32),
+    n = 3, 6, 10 -> r (E, n), A (E, n, n). CUDA tables launch
+    ``csrc/pb_element.cu`` (built at the first call); CPU tables take the
+    plain version."""
+
+    def __init__(self, shape, gradphi, qw, qy, l_b, c0, cylindrical, pi):
+        _check_pb_tables(shape, gradphi, qw, qy)
+        self.route = _route(shape)
+        self.q, self.n = shape.shape
+        self.E = gradphi.shape[0]
+        self.dtype, self.device = shape.dtype, shape.device
+        self.tables = tuple(_aligned(t) for t in (shape, gradphi, qw, qy))
+        self.params = (l_b, c0, bool(cylindrical), pi)
+        self._call = None           # bound at the first CUDA call
+
+    def _bind(self):
+        """The C function with everything that does not change from call
+        to call filled in."""
+        lib = _library()
+        fn = (lib.pb_element_f64 if self.dtype == torch.float64
+              else lib.pb_element_f32)
+        shape, gradphi, qw, qy = (t.data_ptr() for t in self.tables)
+        l_b, c0, cyl, pi = self.params
+        E, q, n = self.E, self.q, self.n
+        coef, two_pi, cyl = 8.0 * pi * l_b * c0, 2.0 * pi, int(cyl)
+        index = self.device.index
+        if index is None:
+            index = torch.cuda.current_device()
+        raw_stream = _raw_stream_of(self.device)
+
+        def call(ue, r, A, out, design):
+            return fn(ue, shape, gradphi, qw, qy, r, A, E, q, n, coef, cyl,
+                      two_pi, out, *design, index, raw_stream())
+
+        return call
+
+    def __call__(self, ue, outputs: str = "both"):
+        out = PB_OUTPUTS[outputs]
+        _check_pb_ue(ue, self.E, self.n, self.dtype, self.device)
+        if self.route == "cpu":
+            return _pb_plain(ue, *self.tables, *self.params, out)
+        return self._launch(ue, out, PB_DESIGN)
+
+    def _launch(self, ue, out: int, design):
+        """Launch the kernel for output code ``out`` (PB_OUTPUTS' values)
+        in ``design`` = (threads an element, staged, threads a block);
+        another design than PB_DESIGN needs a build that holds it."""
+        if self._call is None:
+            self._call = self._bind()
+        ue = _aligned(ue)
+        E, n = self.E, self.n
+        r = ue.new_empty((E, n)) if out & 1 else None
+        A = ue.new_empty((E, n, n)) if out & 2 else None
+        err = self._call(ue.data_ptr(), r.data_ptr() if out & 1 else None,
+                         A.data_ptr() if out & 2 else None, out, design)
+        _check(err, "pb_residual_jacobian")
+        launches["pb_residual_jacobian"] += 1
+        return r, A
+
+
+def _pb_plain(ue, shape, gradphi, qw, qy, l_b, c0, cylindrical, pi, out):
+    """The kernel's arithmetic in torch ops: per quadrature point the
+    interpolated u and grad u, sinh and cosh from one expm1, and the sums
+    over the points; ``out`` as in PB_OUTPUTS' values."""
+    f = qw * qy * (2.0 * pi) if cylindrical else qw
+    coef = 8.0 * pi * l_b * c0
+    sinh_u, cosh_u = sinh_cosh_one_exp(torch.einsum("ei,qi->eq", ue, shape))
+    r = A = None
+    if out & 1:
+        gu = torch.einsum("ei,eqid->eqd", ue, gradphi)
+        r = (torch.einsum("eqd,eqid,eq->ei", gu, gradphi, f)
+             + torch.einsum("eq,qi->ei", coef * sinh_u * f, shape))
+    if out & 2:
+        A = (torch.einsum("eq,eqid,eqjd->eij", f, gradphi, gradphi)
+             + torch.einsum("eq,qi,qj->eij", f * coef * cosh_u, shape, shape))
+    return r, A
 
 
 def pb_residual_jacobian_plain(ue, shape, gradphi, qw, qy, l_b, c0,
-                               cylindrical, pi):
-    """Plain PyTorch version: the volume PB forms on the same tables."""
-    _check_pb(ue, shape, gradphi, qw, qy)
-    t = VolumeTables(shape=shape, gradphi=gradphi, qw=qw, qy=qy, dofmap=None)
-    return (V.pb_residual_el(ue, t, l_b, c0, cylindrical, pi),
-            V.pb_jacobian_el(ue, t, l_b, c0, cylindrical, pi))
+                               cylindrical, pi, outputs: str = "both"):
+    """Plain PyTorch version of :func:`pb_residual_jacobian`, on any
+    device: ``(r, A)``, ``None`` for the one not asked for."""
+    _check_pb_tables(shape, gradphi, qw, qy)
+    _check_pb_ue(ue, gradphi.shape[0], shape.shape[1], shape.dtype,
+                 shape.device)
+    return _pb_plain(ue, shape, gradphi, qw, qy, l_b, c0, cylindrical, pi,
+                     PB_OUTPUTS[outputs])
 
 
 def pb_residual_jacobian(ue, shape, gradphi, qw, qy, l_b, c0, cylindrical,
-                         pi):
-    """Fused PB element residual (E, n) and Jacobian (E, n, n).
-
-    ue (E, n), shape (q, n), gradphi (E, q, n, 2), qw/qy (E, q), all f64
-    (or all f32). CUDA tensors launch ``csrc/pb_element.cu``; CPU tensors
-    take :func:`pb_residual_jacobian_plain`."""
-    if _route(ue) == "cpu":
-        return pb_residual_jacobian_plain(ue, shape, gradphi, qw, qy, l_b,
-                                          c0, cylindrical, pi)
-    _check_pb(ue, shape, gradphi, qw, qy)
-    lib = _library()
-    E, n = ue.shape
-    q = shape.shape[0]
-    ins = [t.contiguous() for t in (ue, shape, gradphi, qw, qy)]
-    r = torch.empty((E, n), dtype=ue.dtype, device=ue.device)
-    A = torch.empty((E, n, n), dtype=ue.dtype, device=ue.device)
-    fn = lib.pb_element_f64 if ue.dtype == torch.float64 else lib.pb_element_f32
-    with torch.cuda.device(ue.device):
-        stream = torch.cuda.current_stream(ue.device).cuda_stream
-        err = fn(*(t.data_ptr() for t in ins), r.data_ptr(), A.data_ptr(),
-                 E, q, n, 8.0 * pi * l_b * c0, 1 if cylindrical else 0,
-                 2.0 * pi, stream)
-    _check(err, "pb_residual_jacobian")
-    launches["pb_residual_jacobian"] += 1
-    return r, A
+                         pi, outputs: str = "both"):
+    """Fused PB element residual (E, n) and Jacobian (E, n, n), every
+    argument checked: one :class:`PBElement` made and called once. A caller
+    that keeps its tables keeps the :class:`PBElement` instead."""
+    return PBElement(shape, gradphi, qw, qy, l_b, c0, cylindrical, pi)(
+        ue, outputs)

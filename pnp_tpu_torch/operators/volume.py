@@ -3,9 +3,9 @@
 
 Each kernel maps element dof values (E, n) -> per-element residual (E, n)
 and analytic per-element Jacobian blocks (E, n, n); all integrals carry
-the quadrature factor from :func:`.common.qfactor`. The PB pair here is
-also the plain version of the fused CUDA kernel
-(:func:`.kernels.pb_residual_jacobian`).
+the quadrature factor from :func:`.common.qfactor`. The fused CUDA kernel
+(:func:`.kernels.pb_residual_jacobian`) and its plain version compute the
+PB pair here, and are held against it by the tests.
 """
 
 from __future__ import annotations

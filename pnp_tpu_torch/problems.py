@@ -9,9 +9,12 @@ in-repo structured pore mesh.
 
 from __future__ import annotations
 
+import numpy as np
+
 from .config import DIRICHLET, NEUMANN, Surface, Sysparams
 from .fem.space import FunctionSpace
 from .meshio.structured import pore_without_dna_mesh
+from .timestepping.tableaux import Tableau
 
 #: pore_pnp's surface charge and bias (SURVEY.md, pore_pnp configuration)
 WALL_FLUX = 1.1
@@ -50,3 +53,20 @@ def pore_case(nx: int = 100, ny: int = 55, degree: int = 1):
     triangles (the dense tier's full-size case), (30, 17) 488 nodes."""
     return pore_sysparams(), FunctionSpace(pore_without_dna_mesh(nx, ny),
                                            degree)
+
+
+def substeps_tableau(lengths=(0.2, 0.3, 0.5)) -> Tableau:
+    """Implicit-Euler substeps of the given lengths (which sum to one) as
+    one tableau: consistent, and its stage diagonals differ, so no one
+    factor serves every stage. The tableaux of
+    :mod:`.timestepping.tableaux` all have one stage diagonal
+    (``fractional_step_theta`` too: alpha theta = beta (1 - 2 theta)); this
+    one drives the species Krylov path in the tests and ``chip_smoke.py``."""
+    s = len(lengths)
+    A = np.zeros((s, s + 1))
+    B = np.zeros((s, s + 1))
+    for i, h in enumerate(lengths):
+        A[i, i], A[i, i + 1], B[i, i + 1] = -1.0, 1.0, h
+    return Tableau("implicit_euler_substeps", A=A, B=B,
+                   D=np.concatenate([[0.0], np.cumsum(lengths)]),
+                   implicit=True)

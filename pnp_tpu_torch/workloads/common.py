@@ -31,6 +31,8 @@ class ScalarContext:
     dirichlet: Any       # (ndof,) configured Dirichlet values (0 elsewhere)
     flux_vector: Any     # (ndof,) assembled Neumann flux contribution
     sys: Sysparams
+    # the prepared PB element kernel (workloads/pb.py makes it at first use)
+    pb_element: Any = None
 
     @property
     def ndof(self) -> int:

@@ -1,7 +1,8 @@
 """The production workload: instationary PNP bootstrapped from a PB solve.
 
 Port of ``pnp_tpu.workloads.instationary_pnp_from_pb`` on one device, in
-two tiers. Parity: reference ``instationary_pnp_md``
+two tiers, each with a species Krylov path beside its factored one.
+Parity: reference ``instationary_pnp_md``
 (src/instationary_pnp_from_pb_md.hh:112-456). Phases:
 
   A. nonlinear PB Newton solve on the coulomb BC table (workloads/pb.py;
@@ -16,13 +17,23 @@ two tiers. Parity: reference ``instationary_pnp_md``
        <= POISSON_INV_MAX_DOFS): one f32 inverse by the Gauss-Jordan
        kernel, each re-solve an f64-residual refinement to 1e-10;
      * block-RAS tier above that: two-level RAS (local inverses + the
-       piecewise-linear coarse space), f64 BiCGSTAB to 1e-10.
+       piecewise-linear coarse space), f64 BiCGSTAB to 1e-10;
+     * above the dense tier with another solver variant than
+       ``BCGS_SSORk``: that variant's Krylov solve to 1e-10 on the
+       assembled diagonal, with the lambda_max(D^-1 A) estimate of setup.
   D. time loop: both species' Alexander-2 stages solved together as one
      (2, ndof) batch. Dense tier: f32 stage matrices inverted by the
      Gauss-Jordan kernel, then f64 refinement against the exact element
      operator. Block-RAS tier: BiCGSTAB under RAS with f32 local stage
      inverses (kernel 1), one factor serving every stage and, in the run
-     loop, ``ras_refresh_every`` steps. Poisson re-solve every
+     loop, ``ras_refresh_every`` steps. A tableau whose stage diagonals
+     differ has no factor that serves every stage (none of
+     ``timestepping.tableaux`` does: ``fractional_step_theta`` too has one
+     diagonal; ``problems.substeps_tableau`` is such a one): on the
+     block-RAS tier each stage builds its own local
+     inverses (kernel 1 once a stage), elsewhere, and for every other
+     solver variant above the dense tier, each stage is that variant's
+     Krylov solve on the batched diagonal. Poisson re-solve every
      potentialUpdateFreq; ion flux + output every outputFreq; final
      Poisson solve.
 
@@ -32,10 +43,8 @@ Poisson do carry it); quadrature orders 3 (PB/Poisson), 2 (species
 spatial), 5 (species mass); dt = tau. Above the mid-size bound the port
 takes the two-level RAS Poisson, as the reference does off the TPU.
 
-Not ported yet (ROADMAP): the multi-device mesh, the species Krylov path
-of non-uniform tableau diagonals and of non-``BCGS_SSORk`` solvers above
-the dense tier, and the TPU-only very-large Poisson and mid-size species
-tiers.
+Not ported yet (ROADMAP): the multi-device mesh, ``CG_AMG_SSOR``, and
+the TPU-only very-large Poisson and mid-size species tiers.
 """
 
 from __future__ import annotations
@@ -64,6 +73,8 @@ from ..solvers.direct import (batched_inv_f32, inv_f32_setup,
                               make_inv_refine_solver,
                               make_inv_refine_solver_arg)
 from ..solvers.krylov import bicgstab
+from ..solvers.linear_problem import make_krylov_solver
+from ..solvers.precond import estimate_dinv_spectral_radius
 from ..utils.device import resolve_device
 from .common import make_scalar_context
 from .pb import solve_pb
@@ -78,6 +89,11 @@ POISSON_INV_MAX_DOFS = 16384
 
 def _host(t) -> np.ndarray:
     return t.detach().cpu().numpy()
+
+
+def _spectral_probe(ndof: int, device):
+    """The start vector of the lambda_max(D^-1 A) power iterations."""
+    return torch.sin(torch.arange(ndof, dtype=F64, device=device) * 0.7) + 1.1
 
 
 def _sync(device) -> None:
@@ -106,7 +122,8 @@ class PnpSystem:
     dt: float
     # factor-amortized species stepping; ``factor_kind`` "dense" (f32
     # stage inverses) or "ras" (f32 local inverses, with the batched p1
-    # coarse tables when ``species_two_level``)
+    # coarse tables when ``species_two_level``). All None where no one
+    # factor serves every stage (the species Krylov path).
     species_factor: Any = None       # (uphi) -> factor
     species_step_reuse: Any = None   # (factor, uphi, ucp, ucm) -> (...)
     factor_kind: Any = None
@@ -116,9 +133,14 @@ class PnpSystem:
     species_dense_f32: Any = None
     species_local_f32: Any = None
     # Poisson setup state: "dense" (P, q) | "inverse" (1, N, N) f32 |
-    # "ras" (local inverses, p1 coarse tables)
+    # "ras" (local inverses, p1 coarse tables) | "krylov" (the assembled
+    # diagonal)
     poisson_tier: str = "dense"
     poisson_pre: Any = None
+    # lambda_max(D^-1 A) estimates with their 1.2 headroom, where a Krylov
+    # path reads them (0-d tensors; None elsewhere)
+    lam_phi: Any = None
+    lam_species: Any = None
     block_context: Any = None        # block-RAS tier's BlockContext
     pb_seconds: float = 0.0      # phase A wall time (host clock, synced)
     poisson_setup_seconds: float = 0.0   # phase C's Poisson setup (synced)
@@ -145,10 +167,12 @@ def build_pnp_system(
     (reference 1e-5, src/instationary_pnp_from_pb_md.hh:383-386).
     ``dense_poisson_threshold``: the dense tier's size bound; above it
     (with ``BCGS_SSORk``) the block-RAS tier with blocks of about
-    ``ras_block_size`` dofs. ``poisson_inv_threshold``: the mid-size
+    ``ras_block_size`` dofs, and with any other solver variant that
+    variant's Krylov solves. ``poisson_inv_threshold``: the mid-size
     Poisson inverse serves up to this many dofs (and at most
     POISSON_INV_MAX_DOFS); 0 forces two-level RAS. ``species_two_level``
-    adds the batched p1 coarse level to the species RAS.
+    adds the batched p1 coarse level to the species RAS factor (a
+    tableau with a uniform stage diagonal only, as in the reference).
     ``species_inv_threshold`` > 0 (the reference's TPU-only mid-size
     species tier) is not ported.
     """
@@ -169,20 +193,19 @@ def build_pnp_system(
     a_tab = [[float(v) for v in row] for row in tab.A]
     b_tab = [[float(v) for v in row] for row in tab.B]
     stages = tab.stages
-    if not all(a_tab[i][i + 1] == a_tab[0][1] and b_tab[i][i + 1] == b_tab[0][1]
-               for i in range(stages)):
-        raise NotImplementedError(
-            "non-uniform tableau diagonals need the species Krylov path "
-            "(ROADMAP: modules to port, 'Species Krylov path')")
     a01, b01 = a_tab[0][1], b_tab[0][1]
-    if sys.linearSolver == "CG_AMG_SSOR":
-        raise NotImplementedError(
-            "CG_AMG_SSOR is not ported yet (ROADMAP: modules to port, 'AMG')")
+    # one factor serves every stage only if the stage diagonals agree
+    uniform_stage_diag = all(
+        a_tab[i][i + 1] == a01 and b_tab[i][i + 1] == b01
+        for i in range(stages))
+    # raises for CG_AMG_SSOR (not ported) and for an unknown variant
+    krylov = make_krylov_solver(sys.linearSolver, sys.linearSolverIterations)
     use_dense = ndof <= dense_poisson_threshold
-    if not use_dense and sys.linearSolver != "BCGS_SSORk":
-        raise NotImplementedError(
-            f"{sys.linearSolver} above the dense tier needs the species "
-            "Krylov path (ROADMAP: modules to port, 'Species Krylov path')")
+    use_block_ras = not use_dense and sys.linearSolver == "BCGS_SSORk"
+    use_dense_species = use_dense and uniform_stage_diag
+    use_ras_factor = use_block_ras and uniform_stage_diag
+    use_species_krylov = not use_dense_species and not use_block_ras
+    species_two_level = species_two_level and use_block_ras
 
     # ---- Phase A: PB bootstrap ------------------------------------------
     t0 = _time.perf_counter()
@@ -217,7 +240,7 @@ def build_pnp_system(
     A_phi_el = V.poisson_jacobian_el(vt_phi, sys.cylindrical, pi)
     op_phi = FA.make_constrained_operator(A_phi_el, vt_phi.dofmap, ndof,
                                           ctx_phi.free)
-    ctx_ras = solve_phi_inv = None
+    ctx_ras = solve_phi_inv = lam_phi = lam_species = None
     t0 = _time.perf_counter()
     if use_dense:
         poisson_tier = "dense"
@@ -244,6 +267,15 @@ def build_pnp_system(
         Ainv = torch.linalg.inv(A_phi_dense)
         poisson_pre = (-(Ainv @ M4_dense), u_bc - Ainv @ rhs_bc)
         del Ainv, A_phi_dense, M4_dense
+    elif not use_block_ras:
+        # another solver variant above the dense tier: its Krylov solve on
+        # the assembled diagonal, lambda_max(D^-1 A) estimated once (the
+        # operator is constant) with 1.2 headroom
+        poisson_tier = "krylov"
+        poisson_pre = FA.constrained_diagonal(A_phi_el, vt_phi.dofmap, ndof,
+                                              ctx_phi.free)
+        lam_phi = 1.2 * estimate_dinv_spectral_radius(
+            op_phi, poisson_pre, _spectral_probe(ndof, device))
     else:
         ctx_ras = BR.build_block_context_for_space(space, ras_block_size,
                                                    device)
@@ -271,7 +303,7 @@ def build_pnp_system(
     poisson_setup_seconds = _time.perf_counter() - t0
 
     # ---- species stage matrices ------------------------------------------
-    use_fast_dense = use_dense and space.degree == 1
+    use_fast_dense = use_dense_species and space.degree == 1
     if use_fast_dense:
         # P1: grad(phi) and the basis gradients are constant per element,
         # so the drift block is rank-1, A_drift[e,i,j] = u_el[e,i] w_el[e,j]
@@ -315,8 +347,21 @@ def build_pnp_system(
             V.drift_diffusion_jacobian_el(gphi, vt2, +1.0, False, pi),
             V.drift_diffusion_jacobian_el(gphi, vt2, -1.0, False, pi)])
 
-    def _stage_blocks(K_pair):
-        return a01 * M_el[None] + (dt * b01) * K_pair
+    def _stage_blocks(K_pair, a_ii=a01, b_ii=b01):
+        return a_ii * M_el[None] + (dt * b_ii) * K_pair
+
+    if use_species_krylov:
+        # lambda_max(D^-1 A) of the first stage's c+ operator at the
+        # initial potential, with 1.2 headroom: the estimate is reused as
+        # the matrices drift
+        A0 = (a01 * M_el + (dt * b01) * V.drift_diffusion_jacobian_el(
+            interp_grad(uphi0[vt2.dofmap], vt2.gradphi), vt2, +1.0, False,
+            pi))
+        lam_species = 1.2 * estimate_dinv_spectral_radius(
+            FA.make_constrained_operator(A0, vt2.dofmap, ndof, masks[0]),
+            FA.constrained_diagonal(A0, vt2.dofmap, ndof, masks[0]),
+            _spectral_probe(ndof, device))
+        del A0
 
     def _species_dense_f32(uphi_, u_el=None):
         """(2, ndof, ndof) f32 constrained stage matrices at the current
@@ -353,8 +398,10 @@ def build_pnp_system(
         """All DIRK stages for both species as one batched (2, ndof)
         system. Dense tier (``factor``): inverse-preconditioned f64
         refinement to ``stage_reduction``, one inverse for every stage of
-        the uniform diagonal. Block-RAS tier (``ras_inv``): f64 BiCGSTAB
-        under RAS (two-level with a (inv, p1) factor)."""
+        the uniform diagonal. Block-RAS tier: f64 BiCGSTAB under RAS with
+        ``ras_inv`` (two-level with a (inv, p1) factor) or, with none
+        handed in, with each stage's own local inverses. Otherwise the
+        configured Krylov variant on each stage's batched diagonal."""
         A_stage = solve = None
         if factor is not None:
             A_stage = _stage_blocks(K_pair)
@@ -401,42 +448,52 @@ def build_pnp_system(
             r = (hist + a_ii * mass_apply(guess)
                  + dt * b_ii * alpha_apply(guess))
             r = torch.where(free_pair, r, 0.0)
-            A_el = a_ii * M_el[None] + (dt * b_ii) * K_pair
+            A_el = _stage_blocks(K_pair, a_ii, b_ii)
             op = FA.make_constrained_operator_batched(A_el, vt2.dofmap, ndof,
                                                       free_pair)
-            inv_s, p1_s = (ras_inv if isinstance(ras_inv, tuple)
-                           else (ras_inv, None))
-            if p1_s is not None:
-                M_s = BR.make_two_level_precond(ctx_ras, inv_s, None, op,
-                                                free_pair, p1_coarse=p1_s)
+            if use_block_ras:
+                inv_s, p1_s = (ras_inv if isinstance(ras_inv, tuple)
+                               else (ras_inv, None))
+                if inv_s is None:    # non-uniform stage diagonal
+                    inv_s = BR.build_local_inverses(ctx_ras, A_el, free_pair)
+                if p1_s is not None:
+                    M_s = BR.make_two_level_precond(ctx_ras, inv_s, None, op,
+                                                    free_pair, p1_coarse=p1_s)
+                else:
+                    M_s = BR.make_ras_precond(ctx_ras, inv_s, free_pair)
+                res = bicgstab(op, r, torch.zeros_like(r), M_s,
+                               stage_reduction, sys.linearSolverIterations)
             else:
-                M_s = BR.make_ras_precond(ctx_ras, inv_s, free_pair)
-            res = bicgstab(op, r, torch.zeros_like(r), M_s, stage_reduction,
-                           sys.linearSolverIterations)
+                dg = torch.zeros((2, ndof), dtype=F64, device=device)
+                dg.index_add_(1, vt2.dofmap.reshape(-1), torch.diagonal(
+                    A_el, dim1=-2, dim2=-1).reshape(2, -1))
+                dg = torch.where(free_pair, dg, 1.0)
+                res = krylov(op, r, torch.zeros_like(r), dg, stage_reduction,
+                             A_el=A_el, lam=lam_species)
             levels.append(guess - res.x)
             iters += res.iterations
         return levels[-1], iters
 
     def species_step(uphi_, ucp_, ucm_):
-        """Fresh factor (stage inverses or local inverses) + both species'
-        DIRK stages."""
+        """Both species' DIRK stages with a fresh factor (stage inverses
+        or local inverses) where one serves every stage, else with none
+        (the species Krylov path)."""
         u_old = torch.stack([ucp_, ucm_])
-        if use_dense:
-            u_el = _drift_u_el(uphi_) if use_fast_dense else None
-            K_pair = _build_K_pair(uphi_, u_el)
+        u_el = _drift_u_el(uphi_) if use_fast_dense else None
+        K_pair = _build_K_pair(uphi_, u_el)
+        factor = ras_inv = None
+        if use_dense_species:
             factor = batched_inv_f32(_species_dense_f32(uphi_, u_el))
-            out, iters = _species_pair_onestep(K_pair, u_old, factor)
-        else:
-            K_pair = _build_K_pair(uphi_)
-            out, iters = _species_pair_onestep(K_pair, u_old, None,
-                                               _ras_factor(K_pair))
+        elif use_ras_factor:
+            ras_inv = _ras_factor(K_pair)
+        out, iters = _species_pair_onestep(K_pair, u_old, factor, ras_inv)
         return out[0], out[1], iters
 
     def species_factor(uphi_):
         """The stage factor at the current potential, reusable across
         steps while phi drifts: a stale factor only raises the refinement
         or Krylov counts (each stage solve checks its own residual)."""
-        if use_dense:
+        if use_dense_species:
             return batched_inv_f32(_species_dense_f32(uphi_))
         return _ras_factor(_build_K_pair(uphi_))
 
@@ -444,7 +501,7 @@ def build_pnp_system(
         """Both species' stages with a possibly stale factor."""
         K_pair = _build_K_pair(uphi_)
         u_old = torch.stack([ucp_, ucm_])
-        if use_dense:
+        if use_dense_species:
             out, iters = _species_pair_onestep(K_pair, u_old, factor)
         else:
             out, iters = _species_pair_onestep(K_pair, u_old, None, factor)
@@ -460,7 +517,8 @@ def build_pnp_system(
     def poisson_solve(uphi_, ucp_, ucm_, phi_pre=None):
         """SLP apply at tolerance 1e-10 (reference :349-350): the affine
         form's one matvec (dense), f64-residual refinement with the f32
-        inverse (mid-size), or two-level-RAS BiCGSTAB (above)."""
+        inverse (mid-size), two-level-RAS BiCGSTAB (above), or the
+        configured Krylov variant on the assembled diagonal."""
         pre = poisson_pre if phi_pre is None else phi_pre
         if poisson_tier == "dense":
             P_phi, q_phi = pre
@@ -469,6 +527,10 @@ def build_pnp_system(
         if poisson_tier == "inverse":
             x, k = solve_phi_inv(pre, r[None], 1e-10)
             return uphi_ - x[0], k
+        if poisson_tier == "krylov":
+            res = krylov(op_phi, r, torch.zeros_like(r), pre, 1e-10,
+                         A_el=A_phi_el, lam=lam_phi)
+            return uphi_ - res.x, res.iterations
         inv_p, p1_p = pre
         M = BR.make_two_level_precond(ctx_ras, inv_p, None, op_phi,
                                       ctx_phi.free, p1_coarse=p1_p)
@@ -491,6 +553,11 @@ def build_pnp_system(
             state = fused_step(*state)
         return state
 
+    # the factor-reuse entry points exist only where one factor serves
+    # every stage (None elsewhere, as in the reference)
+    factor_kind = ("dense" if use_dense_species else
+                   "ras" if use_ras_factor else None)
+    has_factor = factor_kind is not None
     return PnpSystem(
         sys=sys, space=space, pb=pb, pb_newton_iterations=pb_iters,
         uphi0=uphi0, ucp0=ucp0, ucm0=ucm0,
@@ -498,13 +565,14 @@ def build_pnp_system(
         fused_step=fused_step, scan_steps=scan_steps,
         ionflux_tables=build_ionflux_tables(space, sys.cylindrical, pi,
                                             sys.n_surfaces, device),
-        dt=dt, species_factor=species_factor,
-        species_step_reuse=species_step_reuse,
-        factor_kind="dense" if use_dense else "ras",
-        fused_step_reuse=fused_step_reuse,
-        species_dense_f32=_species_dense_f32 if use_dense else None,
-        species_local_f32=None if use_dense else _species_local_f32,
+        dt=dt, species_factor=species_factor if has_factor else None,
+        species_step_reuse=species_step_reuse if has_factor else None,
+        factor_kind=factor_kind,
+        fused_step_reuse=fused_step_reuse if has_factor else None,
+        species_dense_f32=_species_dense_f32 if use_dense_species else None,
+        species_local_f32=_species_local_f32 if use_ras_factor else None,
         poisson_tier=poisson_tier, poisson_pre=poisson_pre,
+        lam_phi=lam_phi, lam_species=lam_species,
         block_context=ctx_ras, pb_seconds=pb_seconds,
         poisson_setup_seconds=poisson_setup_seconds)
 

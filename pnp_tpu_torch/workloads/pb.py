@@ -5,10 +5,10 @@ P_k space on the full mesh, coulomb (component 0) BC table, Newton with
 the accept-best line search over the config knobs, Krylov backend selected
 by config; above ``ras_threshold`` dofs ``BCGS_SSORk`` becomes BiCGSTAB
 under block-RAS with exact local inverses (:mod:`..solvers.block_ras`),
-rebuilt at every Jacobian assembly. The element residual and Jacobian both
-come from the fused PB kernel
-(:func:`..operators.kernels.pb_residual_jacobian`: CUDA on a CUDA device,
-its plain version on the CPU).
+rebuilt at every Jacobian assembly. The element residual and the element
+Jacobian come from the fused PB kernel, each from the variant that writes
+that output alone (:class:`..operators.kernels.PBElement`, prepared once
+per context: CUDA on a CUDA device, its plain version on the CPU).
 
 As in the reference, Dirichlet values are not interpolated into the
 initial iterate (u0 = 0), so PB is solved with phi = 0 on all Dirichlet
@@ -30,16 +30,20 @@ from ..solvers.linear_problem import make_krylov_solver
 from .common import ScalarContext, make_scalar_context
 
 
-def _pb_element(ctx: ScalarContext, u):
-    sys, vt = ctx.sys, ctx.vt
-    return K.pb_residual_jacobian(u[ctx.dofmap], vt.shape, vt.gradphi,
-                                  vt.qw, vt.qy, sys.l_b, sys.c0,
-                                  sys.cylindrical, sys.pi)
+def pb_element(ctx: ScalarContext) -> K.PBElement:
+    """The context's prepared PB element kernel, made at first use."""
+    if ctx.pb_element is None:
+        sys, vt = ctx.sys, ctx.vt
+        ctx.pb_element = K.PBElement(vt.shape, vt.gradphi, vt.qw, vt.qy,
+                                     sys.l_b, sys.c0, sys.cylindrical, sys.pi)
+    return ctx.pb_element
 
 
 def make_pb_residual(ctx: ScalarContext):
+    element = pb_element(ctx)
+
     def residual(u):
-        r_el, _ = _pb_element(ctx, u)
+        r_el, _ = element(u[ctx.dofmap], "residual")
         return ctx.constrain(ctx.scatter(r_el) + ctx.flux_vector)
 
     return residual
@@ -55,13 +59,14 @@ def make_pb_assemble_solve(ctx: ScalarContext, ras_threshold: int = 8192,
     red)`` runs BiCGSTAB + RAS or the configured Krylov variant."""
     sys = ctx.sys
     krylov = make_krylov_solver(sys.linearSolver, sys.linearSolverIterations)
+    element = pb_element(ctx)
     ctx_ras = None
     if sys.linearSolver == "BCGS_SSORk" and ctx.ndof > ras_threshold:
         ctx_ras = BR.build_block_context_for_space(ctx.space, ras_block_size,
                                                    ctx.device)
 
     def assemble(u):
-        _, A_el = _pb_element(ctx, u)
+        _, A_el = element(u[ctx.dofmap], "jacobian")
         if ctx_ras is not None:
             return A_el, BR.build_local_inverses(ctx_ras, A_el, ctx.free)
         return A_el, A.constrained_diagonal(A_el, ctx.dofmap, ctx.ndof,

@@ -13,7 +13,7 @@ from pnp_tpu_torch.fem.geometry import build_volume_tables
 from pnp_tpu_torch.fem.space import FunctionSpace
 from pnp_tpu_torch.meshio.structured import rect_mesh
 from pnp_tpu_torch.operators import kernels as K
-from pnp_tpu_torch.problems import pore_case
+from pnp_tpu_torch.problems import pore_case, substeps_tableau
 from pnp_tpu_torch.solvers.direct import contraction_ok
 from pnp_tpu_torch.workloads.common import make_scalar_context
 from pnp_tpu_torch.workloads.instationary_pnp_from_pb import (
@@ -108,16 +108,21 @@ def test_entry_points_default_to_the_card(cuda):
         assert t.is_cuda and t.device.index == torch.cuda.current_device()
 
 
-@pytest.mark.parametrize("cylindrical", [False, True])
-@pytest.mark.parametrize("degree", [1, 2, 3])
-def test_pb_kernel_matches_plain(cuda, cylindrical, degree):
-    """f64, sums in another order: 1e-13 of each output's scale."""
+def pb_args(cuda, degree, cylindrical, dtype=torch.float64):
     space = FunctionSpace(rect_mesh(20, 16, 2.0, 1.0, y0=0.1), degree)
     vt = build_volume_tables(space, max(3, 2 * degree), cuda)
     g = torch.Generator().manual_seed(degree)
     u = (torch.rand(space.ndof, generator=g, dtype=torch.float64) * 2 - 1)
-    args = (u.to(cuda)[vt.dofmap], vt.shape, vt.gradphi, vt.qw, vt.qy,
-            1.0, 0.06, cylindrical, np.pi)
+    return tuple(t.to(dtype) for t in (u.to(cuda)[vt.dofmap], vt.shape,
+                                       vt.gradphi, vt.qw, vt.qy)) + (
+        1.0, 0.06, cylindrical, np.pi)
+
+
+@pytest.mark.parametrize("cylindrical", [False, True])
+@pytest.mark.parametrize("degree", [1, 2, 3])
+def test_pb_kernel_matches_plain(cuda, cylindrical, degree):
+    """f64, sums in another order: 1e-13 of each output's scale."""
+    args = pb_args(cuda, degree, cylindrical)
     n0 = K.launches["pb_residual_jacobian"]
     r, A = K.pb_residual_jacobian(*args)
     assert K.launches["pb_residual_jacobian"] == n0 + 1
@@ -125,6 +130,60 @@ def test_pb_kernel_matches_plain(cuda, cylindrical, degree):
     for a, b in ((r, r_p), (A, A_p)):
         torch.testing.assert_close(a, b, rtol=1e-13,
                                    atol=1e-13 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("outputs", ["residual", "jacobian"])
+@pytest.mark.parametrize("degree", [1, 2, 3])
+def test_pb_kernel_one_output_variants(cuda, degree, outputs, dtype):
+    """A prepared ``PBElement`` asked for one output launches the variant
+    that writes that output alone, equal to the plain version's (f64
+    1e-13, f32 1e-5 of its scale), and returns ``None`` for the other."""
+    args = pb_args(cuda, degree, True, dtype)
+    plan = K.PBElement(*args[1:])
+    n0 = K.launches["pb_residual_jacobian"]
+    got = plan(args[0], outputs)
+    assert K.launches["pb_residual_jacobian"] == n0 + 1
+    want = K.pb_residual_jacobian_plain(*args, outputs=outputs)
+    tol = 1e-13 if dtype == torch.float64 else 1e-5
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if b is not None:
+            torch.testing.assert_close(a, b, rtol=tol,
+                                       atol=tol * float(b.abs().max()))
+    with pytest.raises(ValueError):
+        plan(args[0][:-1], outputs)
+    with pytest.raises(ValueError):
+        plan(args[0].cpu(), outputs)
+
+
+def test_pb_kernel_one_exp_holds_over_u(cuda):
+    """sinh and cosh from one expm1 on the card: |u| from 1e-8 to 20, both
+    signs and 0, against torch's sinh and cosh through the volume forms,
+    1e-13 relative entry by entry (the sinh and cosh terms alone)."""
+    from pnp_tpu_torch.fem.geometry import VolumeTables
+    from pnp_tpu_torch.operators import volume as V
+
+    mags = torch.cat([torch.zeros(1, dtype=torch.float64),
+                      torch.logspace(-8, np.log10(20.0), 149,
+                                     dtype=torch.float64)])
+    u = torch.cat([mags, -mags]).to(cuda)
+    E, n, q = u.numel(), 3, 4
+    g = torch.Generator().manual_seed(7)
+    shape = torch.full((q, n), 1.0 / n, dtype=torch.float64, device=cuda)
+    gradphi = torch.zeros((E, q, n, 2), dtype=torch.float64, device=cuda)
+    qw = (torch.rand((E, q), generator=g, dtype=torch.float64) * 0.04
+          + 0.01).to(cuda)
+    qy = (torch.rand((E, q), generator=g, dtype=torch.float64) + 0.1).to(cuda)
+    ue = u[:, None].repeat(1, n)
+    params = (0.7, 0.06, True, np.pi)
+    r, A = K.pb_residual_jacobian(ue, shape, gradphi, qw, qy, *params)
+    t = VolumeTables(shape=shape, gradphi=gradphi, qw=qw, qy=qy, dofmap=None)
+    torch.testing.assert_close(r, V.pb_residual_el(ue, t, *params),
+                               rtol=1e-13, atol=0)
+    torch.testing.assert_close(A, V.pb_jacobian_el(ue, t, *params),
+                               rtol=1e-13, atol=0)
 
 
 def test_slice_on_card_matches_cpu(cuda):
@@ -188,3 +247,49 @@ def test_block_ras_step_on_card_matches_cpu(cuda, poisson_inv_threshold):
     for name in ("phi", "cp", "cm"):
         x, y = getattr(a, name).cpu(), getattr(b, name)
         assert float((x - y).abs().max()) <= 1e-9 * float(y.abs().max())
+
+
+def test_species_krylov_step_on_card_matches_cpu(cuda):
+    """The species Krylov path on the forced block-RAS tier: two presolved
+    steps with differing stage diagonals, every stage its own local
+    inverses, so kernel 1 launches three times a step (beside the Poisson
+    inverse's one). On the card against the CPU: counts within one, fields
+    to 1e-9 relative, as the factored block-RAS step above."""
+    sys_, space = pore_case(30, 17)
+    kw = dict(n_steps=2, presolve_potential=True, tableau=substeps_tableau(),
+              **BLOCK_RAS)
+    K.reset_launch_counts()
+    a = run_instationary_pnp_from_pb(sys_, space, device=cuda, **kw)
+    assert K.launches["gj_inverse"] == 1 + 3 * 2
+    b = run_instationary_pnp_from_pb(sys_, space, device="cpu", **kw)
+    assert a.system.factor_kind is b.system.factor_kind is None
+    assert a.system.species_factor is None
+    for x, y in ((a.species_iterations, b.species_iterations),
+                 (a.poisson_iterations, b.poisson_iterations)):
+        assert len(x) == len(y) == 2
+        assert max(abs(p - q) for p, q in zip(x, y)) <= 1, (x, y)
+    for name in ("phi", "cp", "cm"):
+        x, y = getattr(a, name).cpu(), getattr(b, name)
+        assert float((x - y).abs().max()) <= 1e-9 * float(y.abs().max())
+
+
+@pytest.mark.parametrize("solver", ["BCGS_Jacobi", "CG_NOPREC"])
+def test_solver_variant_above_dense_tier_on_card(cuda, solver):
+    """Another solver variant above the dense tier: species stages and the
+    1e-10 Poisson re-solve by the variant itself, on the card against the
+    CPU. No kernel 1 on this path. Fields to 1e-8 relative: 90-260 Krylov
+    iterations to 1e-10 sum in another order on the card."""
+    import dataclasses
+
+    sys_, space = pore_case(30, 17)
+    sys_ = dataclasses.replace(sys_, linearSolver=solver)
+    kw = dict(n_steps=1, presolve_potential=True, **BLOCK_RAS)
+    K.reset_launch_counts()
+    a = run_instationary_pnp_from_pb(sys_, space, device=cuda, **kw)
+    assert K.launches["gj_inverse"] == 0
+    b = run_instationary_pnp_from_pb(sys_, space, device="cpu", **kw)
+    assert a.system.poisson_tier == b.system.poisson_tier == "krylov"
+    assert abs(a.species_iterations[0] - b.species_iterations[0]) <= 1
+    for name in ("phi", "cp", "cm"):
+        x, y = getattr(a, name).cpu(), getattr(b, name)
+        assert float((x - y).abs().max()) <= 1e-8 * float(y.abs().max())

@@ -1,10 +1,11 @@
-"""Kernel 1's CUDA source (``pnp_tpu_torch/csrc/gj_inverse.cu``) compiled as
-plain C++ against ``csrc/emulation/cuda_runtime.h`` and run on the host:
-one std::thread per CUDA thread, barriers for ``__syncthreads`` and the
-warp shuffles. This checks the source's index arithmetic, synchronisation
-and scratch layout against the plain PyTorch version; what nvcc accepts,
-and every time, is checked on the card (tests/test_torch_cuda.py,
-chip_smoke.py). Needs g++ with C++20; skips without one."""
+"""Both kernels' CUDA sources (``pnp_tpu_torch/csrc/gj_inverse.cu``,
+``csrc/pb_element.cu``) compiled as plain C++ against
+``csrc/emulation/cuda_runtime.h`` and run on the host: one std::thread per
+CUDA thread, barriers for ``__syncthreads`` and the warp shuffles. This
+checks the sources' index arithmetic, synchronisation, masking and scratch
+layout against the plain PyTorch versions; what nvcc accepts, and every
+time, is checked on the card (tests/test_torch_cuda.py, chip_smoke.py).
+Needs g++ with C++20; skips without one."""
 
 import ctypes
 import shutil
@@ -19,22 +20,37 @@ from pnp_tpu_torch.operators import kernels as K
 torch.set_num_threads(1)
 
 
-@pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
-    """The kernel source as a host library, bound like the real one."""
+def host_library(tmp_path_factory, source, *defines):
+    """One kernel source as a host library."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the kernel source for the host")
-    out = tmp_path_factory.mktemp("gj_emulation") / "libgj_emulated.so"
+    stem = source.split(".")[0]
+    out = tmp_path_factory.mktemp(f"{stem}_emulation") / f"lib{stem}.so"
     cmd = [gxx, "-std=c++20", "-O1", "-pthread", "-shared", "-fPIC",
-           "-x", "c++", "-DGJ_HOST_EMULATION",
-           "-I", str(K.CSRC / "emulation"), str(K.CSRC / "gj_inverse.cu"),
-           "-o", str(out)]
+           "-x", "c++", *defines, "-I", str(K.CSRC / "emulation"),
+           str(K.CSRC / source), "-o", str(out)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0 and "c++20" in proc.stderr:
         pytest.skip("this g++ has no C++20")
     assert proc.returncode == 0, proc.stderr
-    return K._bind_gj(ctypes.CDLL(str(out)))
+    return ctypes.CDLL(str(out))
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """Kernel 1's source as a host library, bound like the real one."""
+    return K._bind_gj(host_library(tmp_path_factory, "gj_inverse.cu",
+                                   "-DGJ_HOST_EMULATION"))
+
+
+@pytest.fixture(scope="module")
+def emulated_pb(tmp_path_factory):
+    """Kernel 2's source, every design compiled in, bound like the real
+    one."""
+    return K._bind_pb(host_library(tmp_path_factory, "pb_element.cu",
+                                   "-DPB_HOST_EMULATION",
+                                   "-DPB_ALL_DESIGNS"))
 
 
 def run_emulated(lib, A, panel, variant):
@@ -98,3 +114,131 @@ def test_gj_source_rejects_bad_plans(emulated):
                                  (1, 100, 0, 1), (1, 100, 32, 2)):
         assert emulated.gj_scratch_floats(S, N, panel, variant) == 0
         assert emulated.gj_scratch_ints(S, N, panel, variant) == 0
+
+
+# --- kernel 2: fused PB element residual + Jacobian -------------------------
+
+NQ = {3: 4, 6: 6, 10: 12}        # quadrature points of P1-P3 on the path
+
+
+def pb_tables(E, n, dtype, seed=0, u_scale=1.0):
+    """Seeded tables of the kernel's shapes (no mesh: the kernel is
+    elementwise), gradients and weights of the size a unit mesh gives."""
+    rng = np.random.RandomState(seed)
+    q = NQ[n]
+    shape = rng.uniform(-0.2, 1.0, (q, n))
+    gradphi = rng.uniform(-3.0, 3.0, (E, q, n, 2))
+    qw = rng.uniform(0.01, 0.05, (E, q))
+    qy = rng.uniform(0.1, 2.0, (E, q))
+    ue = rng.uniform(-u_scale, u_scale, (E, n))
+    return [torch.tensor(a, dtype=dtype)
+            for a in (ue, shape, gradphi, qw, qy)]
+
+
+def run_emulated_pb(lib, tensors, params, outputs, design):
+    """``kernels.PBElement.__call__`` on host arrays, the outputs filled
+    with NaN beforehand so that an element that is not written, or an
+    output that should not be, shows."""
+    ue, shape, gradphi, qw, qy = (t.numpy() for t in tensors)
+    l_b, c0, cyl, pi = params
+    E, n = ue.shape
+    r = np.full((E, n), np.nan, ue.dtype)
+    A = np.full((E, n, n), np.nan, ue.dtype)
+    fn = lib.pb_element_f64 if ue.dtype == np.float64 else lib.pb_element_f32
+    err = fn(ue.ctypes.data, shape.ctypes.data, gradphi.ctypes.data,
+             qw.ctypes.data, qy.ctypes.data, r.ctypes.data, A.ctypes.data,
+             E, shape.shape[0], n, 8.0 * pi * l_b * c0, int(cyl), 2.0 * pi,
+             K.PB_OUTPUTS[outputs], *design, 0, None)
+    assert err == 0
+    return r, A
+
+
+PB_PARAMS = (0.7, 0.06, True, np.pi)
+SETTLED = K.PB_DESIGN
+
+
+def check_pb_against_plain(lib, tensors, params, outputs, design, rtol):
+    r, A = run_emulated_pb(lib, tensors, params, outputs, design)
+    r_p, A_p = K.pb_residual_jacobian_plain(*tensors, *params,
+                                            outputs=outputs)
+    for got, want in ((r, r_p), (A, A_p)):
+        if want is None:
+            assert np.isnan(got).all()      # the other output: not touched
+        else:
+            want = want.numpy()
+            np.testing.assert_allclose(got, want, rtol=0,
+                                       atol=rtol * np.abs(want).max())
+
+
+@pytest.mark.parametrize("outputs", ["residual", "jacobian", "both"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("n", [3, 6, 10])
+def test_pb_source_on_host_matches_plain(emulated_pb, n, dtype, outputs):
+    """The settled design at E = 1, 127, 128, 300 (one element, a ragged
+    tail, whole blocks): equal to the plain version to round-off (f64
+    1e-13, f32 1e-5 of the output's scale; the sums over quadrature points
+    run in another order), and the output not asked for stays NaN."""
+    rtol = 1e-13 if dtype == torch.float64 else 1e-5
+    for E in (1, 127, 128, 300):
+        check_pb_against_plain(emulated_pb, pb_tables(E, n, dtype, seed=E),
+                               PB_PARAMS, outputs, SETTLED, rtol)
+
+
+@pytest.mark.parametrize("design", [(1, 0, 128), (1, 1, 64), (4, 1, 128),
+                                    (4, 0, 64), (4, 1, 256), (1, 1, 32)],
+                         ids=lambda d: "tpe{}-staged{}-threads{}".format(*d))
+def test_pb_source_every_design(emulated_pb, design):
+    """The designs ``tools/pb_sweep.py`` times (threads an element, staging,
+    threads a block), P1 and P3, f64 and f32, planar and cylindrical."""
+    for n, dtype, E, cyl in ((3, torch.float64, 300, True),
+                             (3, torch.float32, 131, False),
+                             (10, torch.float64, 70, True),
+                             (6, torch.float32, 37, True)):
+        rtol = 1e-13 if dtype == torch.float64 else 1e-5
+        params = PB_PARAMS[:2] + (cyl, np.pi)
+        for outputs in ("residual", "jacobian", "both"):
+            check_pb_against_plain(emulated_pb,
+                                   pb_tables(E, n, dtype, seed=n + E),
+                                   params, outputs, design, rtol)
+
+
+def test_pb_source_one_exp_holds_over_u(emulated_pb):
+    """sinh and cosh from one expm1 in the CUDA source: |u| from 1e-8 to 20
+    (and u = 0), both signs, against torch's sinh and cosh through the
+    volume forms' sums, to 1e-13 relative, entry by entry."""
+    from pnp_tpu_torch.fem.geometry import VolumeTables
+    from pnp_tpu_torch.operators import volume as V
+
+    mags = np.concatenate([[0.0], np.logspace(-8, np.log10(20.0), 149)])
+    E, n = 2 * mags.size, 3
+    tensors = pb_tables(E, n, torch.float64, seed=7)
+    # a constant u on each element: shape rows that sum to one
+    tensors[1] = torch.tensor(np.full((NQ[n], n), 1.0 / n))
+    tensors[0] = torch.tensor(np.concatenate([mags, -mags]))[:, None].repeat(
+        1, n)
+    # the sinh and cosh terms alone: no gradients
+    tensors[2] = torch.zeros_like(tensors[2])
+    r, A = run_emulated_pb(emulated_pb, tensors, PB_PARAMS, "both", SETTLED)
+    t = VolumeTables(shape=tensors[1], gradphi=tensors[2], qw=tensors[3],
+                     qy=tensors[4], dofmap=None)
+    r_v = V.pb_residual_el(tensors[0], t, *PB_PARAMS).numpy()
+    A_v = V.pb_jacobian_el(tensors[0], t, *PB_PARAMS).numpy()
+    np.testing.assert_allclose(r, r_v, rtol=1e-13, atol=0)
+    np.testing.assert_allclose(A, A_v, rtol=1e-13, atol=0)
+
+
+def test_pb_source_rejects_bad_plans(emulated_pb):
+    """No kernel: an order that is none of P1-P3, no output, a design that
+    does not exist, a block that is no multiple of a warp or too large."""
+    tensors = pb_tables(8, 3, torch.float64)
+    ptrs = [t.numpy().ctypes.data for t in tensors]
+    out = np.zeros(8 * 12)
+    good = dict(n=3, outputs=3, tpe=4, staged=0, threads=128)
+    for bad in (dict(n=4), dict(outputs=0), dict(outputs=4), dict(tpe=2),
+                dict(threads=100), dict(threads=512), dict(threads=0)):
+        a = {**good, **bad}
+        err = emulated_pb.pb_element_f64(
+            *ptrs, out.ctypes.data, out.ctypes.data, 8, 4, a["n"], 1.0, 0,
+            6.28, a["outputs"], a["tpe"], a["staged"], a["threads"], 0, None)
+        assert err != 0, bad

@@ -61,6 +61,62 @@ def test_pb_plain_matches_pallas_and_volume(cylindrical):
                                    atol=1e-13)
 
 
+@pytest.mark.parametrize("outputs", ["residual", "jacobian", "both"])
+@pytest.mark.parametrize("cylindrical", [False, True])
+def test_pb_plain_output_variants(cylindrical, outputs):
+    """Each output variant of the plain version (the kernel's arithmetic in
+    torch ops: one expm1 for sinh and cosh) against the port's volume forms
+    and the interpret-mode Pallas kernel, to 1e-13; the output not asked
+    for is ``None``."""
+    from pnp_tpu_torch.operators import volume as V
+
+    vt, ue, params = pb_inputs(cylindrical, seed=2)
+    args = torch_pb_args(vt, ue, params)
+    t = interop.volume_tables(vt)
+    E = ue.shape[0]
+    r_pl, A_pl = pb_residual_jacobian_pallas(
+        pad_to_tile(ue), jnp.asarray(vt.shape), pad_to_tile(vt.gradphi),
+        pad_to_tile(vt.qw), pad_to_tile(vt.qy), *params, interpret=True)
+    r, A = K.pb_residual_jacobian_plain(*args, outputs=outputs)
+    assert (r is None) == (outputs == "jacobian")
+    assert (A is None) == (outputs == "residual")
+    if r is not None:
+        for ref in (V.pb_residual_el(args[0], t, *params).numpy(),
+                    np.asarray(r_pl[:E])):
+            np.testing.assert_allclose(r.numpy(), ref, rtol=1e-13, atol=1e-13)
+    if A is not None:
+        for ref in (V.pb_jacobian_el(args[0], t, *params).numpy(),
+                    np.asarray(A_pl[:E])):
+            np.testing.assert_allclose(A.numpy(), ref, rtol=1e-13, atol=1e-13)
+    # the prepared object on CPU tables is the same plain version
+    got = K.PBElement(*args[1:])(args[0], outputs)
+    for a, b in zip(got, (r, A)):
+        assert (a is None and b is None) or torch.equal(a, b)
+    with pytest.raises(KeyError):
+        K.pb_residual_jacobian_plain(*args, outputs="neither")
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-13),
+                                       (torch.float32, 1e-6)],
+                         ids=["f64", "f32"])
+def test_sinh_cosh_from_one_expm1(dtype, tol):
+    """The kernel's one-exp form, in torch ops, over |u| from 1e-8 to 20,
+    both signs and 0: within 1e-13 relative of torch's f64 sinh and cosh
+    (f32: 1e-6). The naive (e - 1/e) / 2 would be off by 1e-8 relative at
+    |u| = 1e-8."""
+    mags = torch.cat([torch.zeros(1, dtype=torch.float64),
+                      torch.logspace(-8, np.log10(20.0), 400,
+                                     dtype=torch.float64)])
+    u = torch.cat([mags, -mags])
+    sh, ch = K.sinh_cosh_one_exp(u.to(dtype))
+    assert sh.dtype == ch.dtype == dtype
+    torch.testing.assert_close(sh.double(), torch.sinh(u), rtol=tol, atol=0)
+    torch.testing.assert_close(ch.double(), torch.cosh(u), rtol=tol, atol=0)
+    naive = (torch.exp(u) - torch.exp(-u)) / 2
+    assert float(((naive - torch.sinh(u)).abs()
+                  / torch.sinh(u).abs().clamp_min(1e-300)).max()) > 1e-10
+
+
 def test_pb_wrapper_routes_cpu_to_plain():
     vt, ue, params = pb_inputs(True, seed=1)
     args = torch_pb_args(vt, ue, params)

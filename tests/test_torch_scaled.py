@@ -291,9 +291,15 @@ def test_unported_options_raise(case):
         TW.build_pnp_system(tsys, tspace, species_inv_threshold=20000,
                             device="cpu", **RAS)
     import dataclasses
+    amg = dataclasses.replace(tsys, linearSolver="CG_AMG_SSOR")
+    with pytest.raises(NotImplementedError, match="AMG"):
+        TW.build_pnp_system(amg, tspace, **RAS, device="cpu")
+    # the other variants above the dense tier no longer raise: species
+    # stages and Poisson by the variant (tests/test_torch_species_krylov.py)
     cg = dataclasses.replace(tsys, linearSolver="CG_Jacobi")
-    with pytest.raises(NotImplementedError, match="Species Krylov path"):
-        TW.build_pnp_system(cg, tspace, **RAS, device="cpu")
+    system = TW.build_pnp_system(cg, tspace, pb_field=case["t_mid"].pb,
+                                 **RAS, device="cpu")
+    assert (system.factor_kind, system.poisson_tier) == (None, "krylov")
 
 
 def test_profiling(tmp_path):

@@ -141,7 +141,8 @@ def test_non_finite_guard(runs, monkeypatch):
 
 
 def test_unported_tiers_raise():
-    """Above the dense threshold the block-RAS tier now builds; the
+    """Above the dense threshold the block-RAS tier builds, and a tableau
+    whose stage diagonals differ takes the species Krylov path; the
     options that are still unported raise, naming their ROADMAP item."""
     tsys, tspace = problems.pore_case(30, 17)
     system = TW.build_pnp_system(tsys, tspace, dense_poisson_threshold=100,
@@ -157,8 +158,11 @@ def test_unported_tiers_raise():
                                            [-1.0, 0.0, 1.0]]),
                      B=np.array([[0.0, 0.3, 0.0], [0.0, 0.5, 0.4]]),
                      D=np.array([0.0, 0.3, 1.0]), implicit=True)
-    with pytest.raises(NotImplementedError, match="Krylov"):
-        TW.build_pnp_system(tsys, tspace, tableau=skewed, device="cpu")
+    # stage diagonals that differ no longer raise: the species Krylov
+    # path, with no factor to reuse (tests/test_torch_species_krylov.py)
+    krylov = TW.build_pnp_system(tsys, tspace, tableau=skewed, device="cpu")
+    assert krylov.factor_kind is None and krylov.species_factor is None
+    assert krylov.lam_species is not None
 
 
 def test_cpu_run_launches_no_kernel(runs):
