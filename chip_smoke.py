@@ -47,14 +47,53 @@ result line:
    path and not this one;
 9. both kernels at the shapes that run gave them, on inputs built from its
    system: kernel 1 against its plain version on the (96, 369, 369)
-   species RAS local batch at the presolved potential and on the
-   (1, 12097, 12097) constant Poisson matrix of the mid-size tier, kernel
-   2's three variants at E = 23,552;
+   species RAS local batch at the presolved potential, on the (48, 369,
+   369) local batch of phase A's PB Jacobian and on the (1, 12097, 12097)
+   constant Poisson matrix of the mid-size tier, kernel 2's three variants
+   at E = 23,552;
 10. a per-phase breakdown on the run's final state (species factor,
     species stages on a reused factor, Poisson re-solve), a
     ``torch.profiler`` trace of one factor step and one reuse step
     (summarised, and written under ``chip_smoke_out/block_ras/``), and the
-    two-level RAS Poisson tier on the same state against the mid-size tier.
+    two-level RAS Poisson tier on the same state against the mid-size tier;
+11. the very-large Poisson tier (``[very-large main]``):
+    ``run_instationary_pnp_from_pb`` on ``pore_case(320, 176)`` (47,745
+    nodes, 94,208 triangles) with default thresholds, 4 presolved steps on
+    one species factor: one (1, 47745, 47745) f32 inverse by kernel 1, kept
+    equilibrated; the tier, 0 probe failures, a finite state, setup
+    seconds, peak memory, step ms (factor and reuse apart) and refinements
+    a step. The run's inverse is held by the probe against the f64 element
+    operator and by ||A (X b) - b|| on a seeded b, then the two-level RAS
+    Poisson re-solves the same state and the two answers agree to 1e-8.
+    Then both kernels at the shapes this run gave them, as in phase 9:
+    kernel 1 on the (374, 374, 374) species and (187, 374, 374) PB local
+    batches, kernel 2 at E = 94,208 and, with the run freed, kernel 1 with
+    ``equilibrate=False`` on the (1, 47745, 47745) equilibrated Poisson
+    matrix assembled anew, against its plain version and beside
+    ``torch.linalg.inv`` (one timed call of each: the kernel's time alone,
+    and its share of the run's Poisson setup). Its parity
+    (``[very-large parity]``): ``pore_case(30, 17)`` with the tier forced,
+    CUDA against CPU to 1e-9;
+12. the mid-size species tier (``[mid-species main]``): ``pore_case(160,
+    88)`` with ``species_inv_threshold=16384``, 8 presolved steps, a
+    refresh every 4 (kernel 1 at (2, 12097, 12097) each refresh): factor
+    and reuse step ms and refinements beside phase 8's RAS numbers, the
+    kind of each window; its parity on ``pore_case(30, 17)``; and kernel 1
+    on the (2, 12097, 12097) stage batch at the final potential against
+    its plain version and beside ``torch.linalg.inv``;
+13. the other workloads (``[workloads]``) at full width: stationary
+    diffusion on a one-wall ``rect_mesh(320, 32)`` (10,593 nodes) and on
+    ``pore_case(160, 88)``, the monolithic stationary PNP from PB on the
+    one-wall case (3 x 10,593 unknowns), 20 explicit instationary steps on
+    ``pore_case(160, 88)``, each on the card against the same call with
+    ``device="cpu"`` to 1e-9, with kernel 2's launches counted and kernel
+    2 against its plain version at the one-wall shape (planar, E =
+    20,480); and ``python3 -m pnp_tpu_torch`` from a ``.msh`` and a
+    ``.cfg`` of the one-wall case written to ``chip_smoke_out/cli/`` (the
+    production workload on the block-RAS tier; the pore case's raw biased
+    start diverges and the command line has no presolve switch), 4 steps
+    on the card and with ``--device cpu``, their checkpoints against each
+    other and against the library call, to 1e-9.
 
 The next-to-last line is ``{"kernels": [...]}``: per kernel its launches
 in phase 6 (in phase 8 as ``launches_block_ras``, in phase 8b as
@@ -63,8 +102,14 @@ in phase 6 (in phase 8 as ``launches_block_ras``, in phase 8b as
 ``variants``), its bound on this card (``bound_ms``, the
 larger of bytes once in and once out over 3.35 TB/s and operations over
 the peak rate of their type; ``bound_by`` says which) and ``library_ms``;
-the same keys for the block-RAS run's shapes under ``block_ras_shape``
-and ``poisson_shape``. The last line is ``{"ok": true, "device": {...}}``.
+the same keys for the block-RAS run's shapes under ``block_ras_shape``,
+``block_ras_pb_shape`` and ``poisson_shape``, for the very-large run's
+under ``poisson_large_shape``, ``very_large_species_shape``,
+``very_large_pb_shape`` and (kernel 2) ``very_large_shape``, for the
+mid-size species tier's under ``mid_species_shape`` and the one-wall
+workloads' under ``workloads_shape``; ``launches_very_large``,
+``launches_mid_species`` and ``launches_workloads`` count those paths'
+runs. The last line is ``{"ok": true, "device": {...}}``.
 Needs a CUDA device and ``nvcc``; writes the runs' outputs under
 ``chip_smoke_out/`` (gitignored).
 """
@@ -90,6 +135,27 @@ RAS_STEPS = 8
 RAS_REFRESH = 4
 PARITY_STEPS = 5
 KRYLOV_STEPS = 3
+# the very-large Poisson tier at full size: 47,745 nodes, 94,208 triangles
+LARGE_CASE = (320, 176)
+LARGE_SHAPE = (47745, 94208)
+LARGE_STEPS = 4
+# ||A (X b) - b|| / ||b|| of the very-large tier's f32 inverse on a seeded
+# b, against the f64 element operator: one apply of an inverse that the
+# 1e-10 refinement needs to contract by a few decades a pass
+LARGE_RESIDUAL_TOL = 1e-3
+MID_SPECIES_STEPS = 8
+MID_SPECIES_THRESHOLD = 16384
+# the other workloads at full width: the explicit run and the diffusion
+# solve on RAS_CASE, the monolithic Newton solve (which converges on the
+# one-wall case only) on a 5 x 0.5 rect_mesh of 10,593 nodes, 20,480
+# triangles; the command line on that case written to a .msh
+WALL_CASE = (320, 32)
+WORKLOAD_STEPS = 20
+# the diffusion solve's residual reduction: two solves that each stop at a
+# reduction r differ by ~150 r on the pore case (measured: 1.4e-10 at 1e-12),
+# so SLICE_REL_TOL between the card and the CPU asks for 1e-13
+DIFFUSION_REDUCTION = 1e-13
+CLI_STEPS = 4
 # the mid-size and two-level Poisson tiers solve to 1e-10 relative
 # residual; their solutions agree to 1e-8 (the reference's cross-tier
 # bound, tests/test_block_ras.py:279)
@@ -176,29 +242,35 @@ def pb_bound(E: int, n: int, q: int, outputs: str = "both"):
 
 
 def gj_shape_check(torch, K, contraction_ok, A, label: str, reps: int,
-                   plain_reps: int) -> dict:
+                   plain_reps: int, equilibrate: bool = True) -> dict:
     """Kernel 1 on the (S, N, N) f32 batch ``A``: against its plain version
     (max error, relative to the inverse's scale, within GJ_REL_TOL), the
     contraction probe, and the times of the kernel, the plain version and
     ``torch.linalg.inv`` (the library's yardstick, used nowhere in the
-    port), each on this one tensor."""
+    port), each on this one tensor. ``equilibrate`` goes to both versions
+    as the caller on the main path passes it."""
     S, N, _ = A.shape
-    X_k = K.gj_inverse(A)
-    X_p = K.gj_inverse_plain(A)
+    # seconds a call where a count of reps is 0: the checked call is the
+    # timed one
+    X_k, ms = timed(torch, lambda: K.gj_inverse(A, equilibrate))
+    X_p, plain_ms = timed(torch, lambda: K.gj_inverse_plain(A, equilibrate))
     err = float((X_k - X_p).abs().max())
     rel = rel_err(X_k, X_p)
     ok = contraction_ok(A, X_k)
     del X_p
-    lib_rel = rel_err(X_k, torch.linalg.inv(A))
-    del X_k
-    ms = cuda_ms(torch, lambda: K.gj_inverse(A), reps)
-    lib_ms = cuda_ms(torch, lambda: torch.linalg.inv(A), reps)
+    X_l, lib_ms = timed(torch, lambda: torch.linalg.inv(A))
+    lib_rel = rel_err(X_k, X_l)
+    del X_k, X_l
+    if reps:
+        ms = cuda_ms(torch, lambda: K.gj_inverse(A, equilibrate), reps)
+        lib_ms = cuda_ms(torch, lambda: torch.linalg.inv(A), reps)
     if plain_reps:
-        plain_ms = cuda_ms(torch, lambda: K.gj_inverse_plain(A), plain_reps)
-    else:                                   # seconds a call: time one
-        plain_ms = timed(torch, lambda: K.gj_inverse_plain(A))[1]
+        plain_ms = cuda_ms(torch, lambda: K.gj_inverse_plain(A, equilibrate),
+                           plain_reps)
     b_ms, b_by = gj_bound(S, N)
-    print(f"[kernel gj_inverse, {label}] ({S}, {N}, {N}): max abs err vs "
+    print(f"[kernel gj_inverse, {label}] ({S}, {N}, {N})"
+          + ("" if equilibrate else " equilibrate=False")
+          + f": max abs err vs "
           f"plain {err:.3e} (rel {rel:.3e}, tol {GJ_REL_TOL:g}), "
           f"contraction_ok {ok}; kernel {ms:.3f} ms, plain {plain_ms:.3f} "
           f"ms, torch.linalg.inv {lib_ms:.3f} ms (rel diff {lib_rel:.3e}); "
@@ -253,23 +325,43 @@ def pb_check(torch, K, args, E_want: int) -> dict:
     empty_call_ms = cuda_ms(torch, empty, 200)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for name in PB_VARIANTS:
-            for _ in range(20):
-                plan(ue, name)
-        for _ in range(20):
+
+    def traced():
+        """Device ms a launch by instance (0: the empty kernel), from one
+        profiler trace, and the trace's keys."""
+        with torch.profiler.profile(activities=acts) as prof:
+            # the tracer can lose the kernels launched while it still asks
+            # for its first activity buffer: one launch and a sync first
             empty()
-        torch.cuda.synchronize()
-    device = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        m = re.search(r"pb_element_kernel<\w+, \d+, (\d+),", e.key)
-        if m or "pb_empty_kernel" in e.key:
-            device[int(m.group(1)) if m else 0] = (
-                e.self_device_time_total / e.count / 1e3)
+            torch.cuda.synchronize()
+            for name in PB_VARIANTS:
+                for _ in range(20):
+                    plan(ue, name)
+                torch.cuda.synchronize()
+            for _ in range(20):
+                empty()
+            torch.cuda.synchronize()
+        device = {}
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            m = re.search(r"pb_element_kernel<\w+, \d+, (\d+),", e.key)
+            if m or "pb_empty_kernel" in e.key:
+                device[int(m.group(1)) if m else 0] = (
+                    e.self_device_time_total / e.count / 1e3)
+        return device, sorted(e.key[:60] for e in prof.key_averages())
+
+    # a trace that lost an instance's events (seen once in ten runs: two of
+    # the four missing) is taken again; the kernels ran and were checked above
+    for attempt in range(3):
+        device, keys = traced()
+        if set(device) == {0, 1, 2, 3}:
+            break
+        print(f"[kernel pb_residual_jacobian] E={E}: profiler trace "
+              f"{attempt + 1} lacks instances, has {sorted(device)}",
+              flush=True)
     check(set(device) == {0, 1, 2, 3}, "kernel 2's instances not found in "
-          f"the profiler trace: {sorted(e.key[:60] for e in prof.key_averages())}")
+          f"three profiler traces: {keys}")
     for name, code in PB_VARIANTS.items():
         v = out[name]
         v["device_ms"] = device[code]
@@ -547,42 +639,83 @@ def krylov_main(torch, K, W, direct, tableau, pore_case, dev) -> dict:
     return counts
 
 
-def ras_kernel_checks(torch, K, direct, FA, V, make_scalar_context, system,
-                      dev) -> dict:
-    """Phase 9: both kernels at the shapes the block-RAS main path gave
-    them, on inputs built from its system: kernel 1 on the (96, 369, 369)
-    species RAS local batch at the presolved potential and on the
-    (1, 12097, 12097) constant Poisson matrix of the mid-size tier, kernel
-    2 at E = 23,552. Each version runs on the same input tensor: the
-    assembly sums with atomics, so a rebuilt input could differ in its
-    last bits."""
-    nodes, tris, n_blocks, L = RAS_SHAPE
+def ras_kernel_checks(torch, K, direct, FA, V, BR, make_scalar_context,
+                      system, dev, tag: str = "") -> dict:
+    """Both kernels at the shapes a block-RAS run gave them, on inputs
+    built from its ``system`` (phase 9: the 12,097-node run's; phase 11:
+    the 47,745-node run's): kernel 1 on the (2 K, L, L) species RAS local
+    batch at the presolved potential, on the (K, L, L) local batch of
+    phase A's PB Jacobian at the PB field and, on the mid-size tier, on
+    its (1, ndof, ndof) constant Poisson matrix (the very-large tier's is
+    :func:`poisson_large_check`'s), kernel 2 at the mesh's E. Each version
+    runs on the same input tensor: the assembly sums with atomics, so a
+    rebuilt input could differ in its last bits."""
     sys_r, space_r = system.sys, system.space
+    nodes, tris = space_r.ndof, space_r.mesh.num_tris
+    bc = system.block_context
     uphi1, _ = system.poisson_solve(system.uphi0, system.ucp0, system.ucm0)
     A = system.species_local_f32(uphi1)
-    check(tuple(A.shape) == (2, n_blocks, L, L), f"RAS batch {A.shape}")
-    A = A.reshape(2 * n_blocks, L, L)
+    check(tuple(A.shape) == (2, bc.K, bc.L, bc.L), f"RAS batch {A.shape}")
+    A = A.reshape(2 * bc.K, bc.L, bc.L)
     gj = gj_shape_check(torch, K, direct.contraction_ok, A,
-                        "species RAS local batch", 5, 3)
+                        f"{tag}species RAS local batch", 5, 3)
     del A
 
-    # the mid-size tier's constant Poisson matrix, assembled as the driver
-    # assembles it; one timed call of each version (seconds each)
     ctx = make_scalar_context(sys_r, space_r, component=0, quad_order=3,
                               device=dev)
     vt = ctx.vt
-    A_el = V.poisson_jacobian_el(vt, sys_r.cylindrical, sys_r.pi)
-    P32 = FA.dense_constrained_matrix(A_el.to(torch.float32), vt.dofmap,
-                                      nodes, ctx.free)[None]
-    check(tuple(P32.shape) == (1, nodes, nodes), f"Poisson {P32.shape}")
-    gj_poisson = gj_shape_check(torch, K, direct.contraction_ok, P32,
-                                "constant Poisson matrix", 3, 0)
-    del P32
-
     args = (system.pb[vt.dofmap], vt.shape, vt.gradphi, vt.qw, vt.qy,
             sys_r.l_b, sys_r.c0, sys_r.cylindrical, sys_r.pi)
-    pb = pb_check(torch, K, args, tris)
-    return {"gj": gj, "gj_poisson": gj_poisson, "pb": pb}
+    # phase A's Newton iterations invert the PB Jacobian's local matrices
+    _, J_el = K.pb_residual_jacobian_plain(*args, outputs="jacobian")
+    A = BR.assemble_local_matrices(bc, J_el, ctx.free)
+    check(tuple(A.shape) == (bc.K, bc.L, bc.L), f"PB local batch {A.shape}")
+    gj_pb = gj_shape_check(torch, K, direct.contraction_ok, A,
+                           f"{tag}PB Jacobian local batch", 5, 3)
+    del A, J_el
+    out = {"gj": gj, "gj_pb": gj_pb}
+
+    if system.poisson_tier == "inverse":
+        # the mid-size tier's constant Poisson matrix, assembled as the
+        # workload assembles it; one timed call of the plain version (seconds)
+        A_el = V.poisson_jacobian_el(vt, sys_r.cylindrical, sys_r.pi)
+        P32 = FA.dense_constrained_matrix(A_el.to(torch.float32), vt.dofmap,
+                                          nodes, ctx.free)[None]
+        check(tuple(P32.shape) == (1, nodes, nodes), f"Poisson {P32.shape}")
+        out["gj_poisson"] = gj_shape_check(
+            torch, K, direct.contraction_ok, P32,
+            f"{tag}constant Poisson matrix", 3, 0)
+        del P32
+
+    out["pb"] = pb_check(torch, K, args, tris)
+    return out
+
+
+def poisson_large_check(torch, K, W, direct, V, make_scalar_context, sys_l,
+                        space_l, dev) -> dict:
+    """Kernel 1 at the very-large tier's shape, (1, ndof, ndof) with
+    ``equilibrate=False``, on the equilibrated Poisson matrix assembled as
+    the workload assembles it: against its plain version (GJ_REL_TOL), the
+    probe, and beside ``torch.linalg.inv``; one timed call of each (seconds
+    each). Needs room for five matrices of that size: call it with the
+    run's own inverse freed."""
+    nodes = space_l.ndof
+    ctx = make_scalar_context(sys_l, space_l, component=0, quad_order=3,
+                              device=dev)
+    A_el = V.poisson_jacobian_el(ctx.vt, sys_l.cylindrical, sys_l.pi)
+    A_eq, _ = W.equilibrated_dense_f32(A_el, ctx.vt.dofmap, nodes, ctx.free)
+    del A_el, ctx
+    torch.cuda.empty_cache()
+    free_gib = torch.cuda.mem_get_info(dev)[0] / 2**30
+    torch.cuda.reset_peak_memory_stats(dev)
+    entry = gj_shape_check(torch, K, direct.contraction_ok, A_eq[None],
+                           "very-large Poisson matrix", 0, 0,
+                           equilibrate=False)
+    print(f"[kernel gj_inverse, very-large Poisson matrix] {free_gib:.1f} "
+          f"GiB free before the three versions, peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB in them",
+          flush=True)
+    return entry
 
 
 def trace_summary(torch, prof, wall_s: float, label: str,
@@ -657,6 +790,406 @@ def ras_breakdown(torch, W, PhaseTimer, maybe_trace, res, dev) -> None:
     check(tier_err <= TIER_REL_TOL, "Poisson tiers disagree")
 
 
+def fields_rel(torch, a, b):
+    """Largest relative error over (phi, cp, cm) and the currents of two
+    runs of the production workload."""
+    errs = [rel_err(getattr(a, n).cpu(), getattr(b, n).cpu())
+            for n in ("phi", "cp", "cm")]
+    cur = [rel_err(torch.tensor(x), torch.tensor(y))
+           for (_, *xs), (_, *ys) in zip(a.current_history, b.current_history)
+           for x, y in zip(xs, ys)]
+    return max(errs), max(cur)
+
+
+def very_large_main(torch, K, W, direct, FA, V, BR, make_scalar_context,
+                    pore_case, dev):
+    """Phase 11: the very-large Poisson tier at full size, then both
+    kernels at the shapes that run gave them. Returns kernel 1's entry for
+    the (1, N, N) shape, the other shapes' entries and the run's launch
+    counts."""
+    nodes, tris = LARGE_SHAPE
+    sys_l, space_l = pore_case(*LARGE_CASE)
+    check((space_l.ndof, space_l.mesh.num_tris) == (nodes, tris),
+          f"pore_case{LARGE_CASE}: {space_l.ndof} nodes")
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_launch_counts()
+    direct.probe_failures["count"] = 0
+    res = W.run_instationary_pnp_from_pb(
+        sys_l, space_l, n_steps=LARGE_STEPS, presolve_potential=True,
+        ras_refresh_every=RAS_REFRESH, device=dev)
+    counts = dict(K.launches)
+    failures = direct.probe_failures["count"]
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    held = torch.cuda.memory_allocated(dev) / 2**30
+    system = res.system
+    ctx = system.block_context
+    print(f"[very-large main] pore_case{LARGE_CASE}: {nodes} dofs, {tris} "
+          f"triangles; factor kind {system.factor_kind}, Poisson tier "
+          f"{system.poisson_tier}, K {ctx.K} B {ctx.B} L {ctx.L}")
+    check(system.poisson_tier == "inverse_large",
+          f"very-large tier not taken: tier {system.poisson_tier}, probe "
+          f"failures {failures}")
+    setup_s, poisson_setup_s = res.setup_seconds, res.poisson_setup_seconds
+    print(f"[very-large main] PB Newton iterations "
+          f"{res.pb_newton_iterations}, phase A {res.pb_seconds:.3f} s, "
+          f"setup (A-C) {setup_s:.3f} s, Poisson setup (f32 assembly, kernel "
+          f"1 at (1, {nodes}, {nodes}), probe) {poisson_setup_s:.3f} s")
+    for i, (ms, ks, kp, fresh) in enumerate(zip(
+            res.step_ms, res.species_iterations, res.poisson_iterations,
+            res.factor_rebuilt)):
+        print(f"[very-large main] step {i} {'factor' if fresh else 'reuse'}"
+              f" {ms:.2f} ms, species its {ks}, Poisson refinements {kp}")
+    print(f"[very-large main] launches {counts}, probe failures "
+          f"{failures}, peak memory {peak:.2f} GiB, held after the run "
+          f"{held:.2f} GiB", flush=True)
+    check(failures == 0, f"{failures} contraction-probe failures")
+    check(all(tuple(v.shape) == (nodes,) and bool(torch.isfinite(v).all())
+              for v in (res.phi, res.cp, res.cm)),
+          "non-finite or misshapen final state")
+    check(len(res.current_history) == LARGE_STEPS
+          and all(math.isfinite(v) for _, a, b in res.current_history
+                  for v in (*a, *b)), "currents")
+    check(res.factor_rebuilt == [i % RAS_REFRESH == 0
+                                 for i in range(LARGE_STEPS)]
+          and res.factor_kinds == ["ras"] * LARGE_STEPS,
+          f"factor schedule {res.factor_rebuilt} {res.factor_kinds}")
+    for name, n in counts.items():
+        check(n > 0, f"kernel {name} was not launched on the very-large path")
+
+    # the run's inverse against the f64 element operator on a seeded b
+    X_eq, s = system.poisson_pre
+    check(tuple(X_eq.shape) == (1, nodes, nodes) and tuple(s.shape) == (nodes,),
+          f"poisson_pre shapes {X_eq.shape} {s.shape}")
+    del X_eq, s
+    ctx_phi = make_scalar_context(sys_l, space_l, component=0, quad_order=3,
+                                  device=dev)
+    A_el = V.poisson_jacobian_el(ctx_phi.vt, sys_l.cylindrical, sys_l.pi)
+    op = FA.make_constrained_operator_batched(
+        A_el[None], ctx_phi.vt.dofmap, nodes, ctx_phi.free[None])
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    b = torch.randn(1, nodes, generator=gen, dtype=torch.float64).to(dev)
+    x = direct.scaled_inv_apply(system.poisson_pre, b)
+    resid = float(torch.linalg.vector_norm(op(x) - b)
+                  / torch.linalg.vector_norm(b))
+    print(f"[very-large main] ||A (X b) - b|| / ||b|| on a seeded b against "
+          f"the f64 element operator {resid:.3e} (tol "
+          f"{LARGE_RESIDUAL_TOL:g})", flush=True)
+    check(resid <= LARGE_RESIDUAL_TOL, "very-large inverse residual")
+    del op, A_el, ctx_phi, x, b
+
+    # the same state through the two-level RAS Poisson (PB field shared)
+    state = (res.phi, res.cp, res.cm)
+    system.poisson_solve(*state)
+    (phi_inv, k_inv), inv_solve_ms = timed(
+        torch, lambda: system.poisson_solve(*state))
+    two = W.build_pnp_system(sys_l, space_l, pb_field=system.pb,
+                             poisson_inv_threshold=0, device=dev)
+    check(two.poisson_tier == "ras", "two-level RAS Poisson system")
+    two.poisson_solve(*state)
+    (phi_two, k_two), two_solve_ms = timed(
+        torch, lambda: two.poisson_solve(*state))
+    tier_err = rel_err(phi_two, phi_inv)
+    print(f"[very-large main] Poisson re-solve on the final state: inverse "
+          f"tier {inv_solve_ms:.2f} ms ({k_inv} refinements), two-level RAS "
+          f"{two_solve_ms:.2f} ms ({k_two} BiCGSTAB its, its setup "
+          f"{1e3 * two.poisson_setup_seconds:.1f} ms); rel err "
+          f"{tier_err:.3e} (tol {TIER_REL_TOL:g})", flush=True)
+    check(tier_err <= TIER_REL_TOL, "very-large and two-level RAS Poisson "
+          "tiers disagree")
+    del two, phi_two, phi_inv
+
+    # both kernels at this run's shapes: the (2 K, L, L) and (K, L, L)
+    # local batches and kernel 2 at E = 94,208 from the run's system; then,
+    # with the run and its inverse freed, the (1, N, N) Poisson matrix
+    shapes = ras_kernel_checks(torch, K, direct, FA, V, BR,
+                               make_scalar_context, system, dev,
+                               tag="very-large ")
+    del res, system, state
+    entry = poisson_large_check(torch, K, W, direct, V, make_scalar_context,
+                                sys_l, space_l, dev)
+    share = entry["ms"] / (1e3 * poisson_setup_s)
+    print(f"[very-large main] kernel 1 at (1, {nodes}, {nodes}), timed alone "
+          f"after the run, {entry['ms'] / 1e3:.3f} s: {100 * share:.1f} % of "
+          f"the run's Poisson setup", flush=True)
+    entry.update(residual_rel=resid, peak_memory_gib=peak,
+                 share_of_poisson_setup=share)
+    return entry, shapes, counts
+
+
+def very_large_parity(torch, W, pore_case, dev) -> None:
+    """Phase 11's parity: the very-large tier forced on the small case (the
+    mid-size bound set to 0), CUDA against CPU."""
+    sys_s, space_s = pore_case(30, 17)
+    bound_was = W.POISSON_INV_MAX_DOFS
+    W.POISSON_INV_MAX_DOFS = 0
+    try:
+        run = lambda d: W.run_instationary_pnp_from_pb(
+            sys_s, space_s, n_steps=PARITY_STEPS, presolve_potential=True,
+            dense_poisson_threshold=0, ras_block_size=64,
+            ras_refresh_every=RAS_REFRESH, device=d)
+        g, c = run(dev), run("cpu")
+    finally:
+        W.POISSON_INV_MAX_DOFS = bound_was
+    err, cur = fields_rel(torch, g, c)
+    print(f"[very-large parity] pore_case(30, 17), tier forced, "
+          f"{PARITY_STEPS} presolved steps, CUDA vs CPU: rel err fields "
+          f"{err:.3e} currents {cur:.3e} (tol {SLICE_REL_TOL:g}); Poisson "
+          f"refinements cuda {g.poisson_iterations} cpu "
+          f"{c.poisson_iterations}", flush=True)
+    check(g.system.poisson_tier == c.system.poisson_tier == "inverse_large",
+          "very-large parity: tier not taken")
+    check(max(abs(a - b) for a, b in zip(g.poisson_iterations,
+                                         c.poisson_iterations)) <= 1,
+          "very-large parity: refinement counts differ by more than one")
+    check(max(err, cur) <= SLICE_REL_TOL, "very-large parity")
+
+
+def mid_species_main(torch, K, W, direct, pore_case, ras_res, dev):
+    """Phase 12: the mid-size species tier at 12,097 nodes beside phase 8's
+    RAS numbers (``ras_res``), its parity on the small case, then kernel 1
+    on the (2, N, N) stage batch at the run's final potential against its
+    plain version. Returns kernel 1's entry for that shape and the run's
+    launch counts."""
+    nodes = RAS_SHAPE[0]
+    sys_r, space_r = pore_case(*RAS_CASE)
+    K.reset_launch_counts()
+    direct.probe_failures["count"] = 0
+    res = W.run_instationary_pnp_from_pb(
+        sys_r, space_r, n_steps=MID_SPECIES_STEPS,
+        presolve_potential=True, ras_refresh_every=RAS_REFRESH,
+        species_inv_threshold=MID_SPECIES_THRESHOLD, device=dev,
+        **RAS_KW)
+    counts = dict(K.launches)
+    failures = direct.probe_failures["count"]
+
+    def split(r):
+        fa = [t for t, f in zip(r.step_ms, r.factor_rebuilt) if f]
+        re_ = [t for t, f in zip(r.step_ms, r.factor_rebuilt) if not f]
+        return fa, re_
+
+    fa, re_ = split(res)
+    fa_ras, re_ras = split(ras_res)
+    fmt = lambda xs: " ".join(f"{t:.2f}" for t in xs)
+    print(f"[mid-species main] pore_case{RAS_CASE}, species_inv_threshold "
+          f"{MID_SPECIES_THRESHOLD}, {MID_SPECIES_STEPS} presolved steps, "
+          f"refresh every {RAS_REFRESH}: window kinds {res.factor_kinds}")
+    print(f"[mid-species main] factor steps ms {fmt(fa)} (each with kernel "
+          f"1 at (2, {nodes}, {nodes})), reuse steps ms {fmt(re_)}; "
+          f"refinements a step {res.species_iterations}, Poisson "
+          f"{res.poisson_iterations}")
+    print(f"[mid-species main] beside the RAS factor (phase 8): factor steps "
+          f"ms {fmt(fa_ras)}, reuse steps ms {fmt(re_ras)}; BiCGSTAB its a "
+          f"step {ras_res.species_iterations}")
+    mean = lambda xs: sum(xs) / len(xs)
+    amort = lambda f, r: (mean(f) + (RAS_REFRESH - 1) * mean(r)) / RAS_REFRESH
+    gain = mean(re_ras) - mean(re_)
+    extra = mean(fa) - mean(fa_ras)
+    print(f"[mid-species main] mean step at a refresh every {RAS_REFRESH}: "
+          f"{amort(fa, re_):.2f} ms against {amort(fa_ras, re_ras):.2f} ms "
+          f"with the RAS factor; a reuse step gains {gain:.2f} ms, a refresh "
+          f"costs {extra:.2f} ms more: break-even at a refresh every "
+          + (f"{1 + extra / gain:.0f} steps" if gain > 0 else "- (no gain)")
+          + f"; launches {counts}, probe failures {failures}", flush=True)
+    check(res.system.factor_kind == "ras"
+          and res.system.poisson_tier == "inverse", "mid-species: tiers")
+    # kernel 1: phase A's Jacobian factors (at most one a Newton iteration),
+    # the Poisson inverse, and one launch a refresh
+    refreshes = MID_SPECIES_STEPS // RAS_REFRESH
+    check(1 <= counts["gj_inverse"] - refreshes
+          <= 1 + res.pb_newton_iterations,
+          f"gj_inverse launched {counts['gj_inverse']} times: not once a "
+          "refresh beside the setup's")
+    check(res.factor_kinds == ["inv"] * MID_SPECIES_STEPS and failures == 0,
+          f"mid-species windows {res.factor_kinds}, {failures} probe "
+          "failures")
+    check(all(bool(torch.isfinite(v).all())
+              for v in (res.phi, res.cp, res.cm)), "non-finite final state")
+    # against phase 8's run from the same start: the stage tolerance's slack
+    slack = max(rel_err(getattr(res, n), getattr(ras_res, n))
+                for n in ("phi", "cp", "cm"))
+    print(f"[mid-species main] final state against phase 8's RAS run: rel "
+          f"err {slack:.3e} (stage solves to 1e-5; bound 2e-4)")
+    check(slack <= 2e-4, "mid-species run against the RAS run")
+    for name, n in counts.items():
+        check(n > 0, f"kernel {name} was not launched on the mid-species path")
+
+    sys_s, space_s = pore_case(30, 17)
+    run = lambda d: W.run_instationary_pnp_from_pb(
+        sys_s, space_s, n_steps=PARITY_STEPS, presolve_potential=True,
+        dense_poisson_threshold=0, ras_block_size=64, ras_refresh_every=2,
+        species_inv_threshold=space_s.ndof, device=d)
+    g, c = run(dev), run("cpu")
+    err, cur = fields_rel(torch, g, c)
+    print(f"[mid-species parity] pore_case(30, 17), refresh every 2, "
+          f"{PARITY_STEPS} presolved steps, CUDA vs CPU: rel err fields "
+          f"{err:.3e} currents {cur:.3e} (tol {SLICE_REL_TOL:g}); kinds "
+          f"{g.factor_kinds}; refinements cuda {g.species_iterations} cpu "
+          f"{c.species_iterations}", flush=True)
+    check(g.factor_kinds == c.factor_kinds == ["inv"] * PARITY_STEPS,
+          "mid-species parity: kinds")
+    check(max(abs(a - b) for a, b in zip(g.species_iterations,
+                                         c.species_iterations)) <= 1,
+          "mid-species parity: refinement counts differ by more than one")
+    check(max(err, cur) <= SLICE_REL_TOL, "mid-species parity")
+
+    # kernel 1 at this shape, on the stage matrices at the final potential,
+    # against its plain version and beside torch.linalg.inv (one timed call
+    # of the plain version: seconds)
+    A = res.system.species_dense_f32(res.phi)
+    check(tuple(A.shape) == (2, nodes, nodes), f"stage batch {A.shape}")
+    entry = gj_shape_check(torch, K, direct.contraction_ok, A,
+                           "mid-size species stage batch", 3, 0)
+    return entry, counts
+
+
+def workloads_phase(torch, K, W, make_scalar_context, pore_case, dev):
+    """Phase 13: the other workloads at full width on the card against the
+    CPU, kernel 2's launches counted and kernel 2 held against its plain
+    version at the one shape no earlier phase gave it; then the command
+    line from files written here. Returns that shape's entry and the
+    launch counts of the card runs."""
+    import numpy as np
+
+    from pnp_tpu_torch import problems
+    from pnp_tpu_torch.workloads.instationary_pnp import run_instationary_pnp
+    from pnp_tpu_torch.workloads.pb import solve_pb
+    from pnp_tpu_torch.workloads.stationary_diffusion import (
+        run_stationary_diffusion)
+    from pnp_tpu_torch.workloads.stationary_pnp import run_stationary_pnp
+
+    def both(fn):
+        """``fn(device)`` on the card (timed, host clock, synced) and on
+        the CPU."""
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        g = fn(dev)
+        torch.cuda.synchronize(dev)
+        ms = 1e3 * (time.perf_counter() - t0)
+        return g, fn("cpu"), ms
+
+    K.reset_launch_counts()
+    sys_r, space_r = pore_case(*RAS_CASE)
+    sys_w, space_w = problems.one_wall_case(*WALL_CASE)
+    pore, wall = f"pore_case{RAS_CASE}", f"one-wall rect_mesh{WALL_CASE}"
+    for label, (sys_c, space_c) in ((wall, (sys_w, space_w)),
+                                    (pore, (sys_r, space_r))):
+        (ug, rg), (uc, rc), ms = both(lambda d: run_stationary_diffusion(
+            sys_c, space_c, DIFFUSION_REDUCTION, device=d))
+        err = rel_err(ug.cpu(), uc)
+        print(f"[workloads] stationary_diffusion, {label}, {space_c.ndof} "
+              f"dofs: {ms:.1f} ms on the card, {rg.iterations} its (cpu "
+              f"{rc.iterations}), CUDA vs CPU rel err {err:.3e} (tol "
+              f"{SLICE_REL_TOL:g})", flush=True)
+        # BiCGSTAB that far down: the atomic assembly's last bits move the
+        # count by a few iterations from one run on the card to the next
+        check(ug.is_cuda and rg.converged and rc.converged
+              and err <= SLICE_REL_TOL, f"stationary_diffusion, {label}")
+
+    # the monolithic Newton solve on the one-wall case only: on the pore
+    # case its Jacobi-preconditioned BiCGSTAB runs to its iteration cap
+    before = K.launches["pb_residual_jacobian"]
+    g, c, ms = both(lambda d: run_stationary_pnp(sys_w, space_w, from_pb=True,
+                                                 device=d))
+    pb_launches = K.launches["pb_residual_jacobian"] - before
+    err = rel_err(g.u.cpu(), c.u)
+    print(f"[workloads] stationary_pnp from PB, {wall}, 3 x {space_w.ndof} "
+          f"dofs: {ms:.1f} ms on the card, Newton {g.iterations} its (cpu "
+          f"{c.iterations}), linear {g.linear_iterations} (cpu "
+          f"{c.linear_iterations}), kernel 2 launches {pb_launches}, CUDA vs "
+          f"CPU rel err {err:.3e} (tol {SLICE_REL_TOL:g})", flush=True)
+    check(g.converged and c.converged and g.iterations == c.iterations
+          and pb_launches > 0 and err <= SLICE_REL_TOL,
+          "stationary_pnp on the card")
+
+    before = K.launches["pb_residual_jacobian"]
+    g, c, ms = both(lambda d: run_instationary_pnp(
+        sys_r, space_r, n_steps=WORKLOAD_STEPS, device=d))
+    pb_launches = K.launches["pb_residual_jacobian"] - before
+    err = max(rel_err(getattr(g, n).cpu(), getattr(c, n))
+              for n in ("phi", "cp", "cm"))
+    print(f"[workloads] instationary_pnp, {pore}, {space_r.ndof} dofs, "
+          f"{WORKLOAD_STEPS} explicit steps of dt {g.dt:.3e}: {ms:.1f} ms on "
+          f"the card, kernel 2 launches {pb_launches}, CUDA vs CPU rel err "
+          f"{err:.3e} (tol {SLICE_REL_TOL:g})", flush=True)
+    check(g.dt == c.dt and pb_launches > 0 and err <= SLICE_REL_TOL
+          and all(bool(torch.isfinite(getattr(g, n)).all())
+                  for n in ("phi", "cp", "cm")),
+          "instationary_pnp on the card")
+    counts = dict(K.launches)
+
+    # kernel 2 at the one-wall runs' shape (planar, E = 20,480) against its
+    # plain version; the pore runs' (cylindrical, E = 23,552) is phase 9's
+    ctx = make_scalar_context(sys_w, space_w, component=0, quad_order=3,
+                              device=dev)
+    vt = ctx.vt
+    pb_w = solve_pb(sys_w, space_w, device=dev).u
+    entry = pb_check(torch, K, (pb_w[vt.dofmap], vt.shape, vt.gradphi, vt.qw,
+                                vt.qy, sys_w.l_b, sys_w.c0, sys_w.cylindrical,
+                                sys_w.pi), space_w.mesh.num_tris)
+
+    # the command line, from a .msh and a .cfg written here: the production
+    # workload on the one-wall case (10,593 nodes: the block-RAS tier with
+    # the mid-size Poisson inverse), on the card (no --device) and with
+    # --device cpu; each leaves a checkpoint after its last step. Not the
+    # pore case: the command line has no presolve switch, as the
+    # reference's has none, and that case's raw biased start diverges
+    cli_dir = os.path.join(REPO, "chip_smoke_out", "cli")
+    os.makedirs(cli_dir, exist_ok=True)
+    problems.write_gmsh(space_w.mesh, os.path.join(cli_dir, "one_wall.msh"))
+    problems.write_config(sys_w, os.path.join(cli_dir, "one_wall.cfg"),
+                          "one_wall.msh")
+
+    def cli(tag, *device_args):
+        ck = os.path.join(cli_dir, f"{tag}.ck")
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "pnp_tpu_torch", "--steps", str(CLI_STEPS),
+             "--checkpoint", ck, "--checkpoint-freq", str(CLI_STEPS), "-o",
+             os.path.join(cli_dir, f"out_{tag}"), *device_args,
+             os.path.join(cli_dir, "one_wall.cfg")],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        wall_s = time.perf_counter() - t0
+        for line in out.stdout.splitlines():
+            print(f"[workloads] cli ({tag}): {line}")
+        print(f"[workloads] python3 -m pnp_tpu_torch --steps {CLI_STEPS} "
+              f"--checkpoint ... -o ... {' '.join(device_args)} one_wall.cfg: "
+              f"exit code {out.returncode}, {wall_s:.1f} s of process time",
+              flush=True)
+        check(out.returncode == 0, f"command line failed: "
+              f"{out.stderr[-2000:]}")
+        check(f"{space_w.ndof} nodes" in out.stdout
+              and f"{CLI_STEPS} steps in" in out.stdout
+              and os.path.exists(os.path.join(cli_dir, f"out_{tag}",
+                                              "current.dat")),
+              "command line output")
+        return out.stdout, np.load(ck)
+
+    out_g, ck_g = cli("cuda")
+    check("device cuda" in out_g, "the command line did not take the card")
+    out_c, ck_c = cli("cpu", "--device", "cpu")
+    check("device cpu" in out_c, "--device cpu")
+    # the same call through the library, from the case in memory
+    res = W.run_instationary_pnp_from_pb(sys_w, space_w, n_steps=CLI_STEPS,
+                                         device=dev)
+    check((res.system.factor_kind, res.system.poisson_tier)
+          == ("ras", "inverse"), "the one-wall case's tiers")
+    err_cpu = max(rel_err(torch.tensor(ck_g[n]), torch.tensor(ck_c[n]))
+                  for n in ("phi", "cp", "cm"))
+    # the checkpoint's potential is the last step's; the run's final
+    # potential has one more 1e-10 solve behind it
+    err_lib = max(rel_err(torch.tensor(ck_g[n]), getattr(res, n).cpu())
+                  for n in ("cp", "cm"))
+    print(f"[workloads] cli checkpoints after {CLI_STEPS} steps at "
+          f"{space_w.ndof} nodes: card vs --device cpu rel err {err_cpu:.3e}, "
+          f"card vs the library call on the case in memory (cp, cm) "
+          f"{err_lib:.3e} (tol {SLICE_REL_TOL:g})", flush=True)
+    check(int(ck_g["step"]) == int(ck_c["step"]) == CLI_STEPS
+          and max(err_cpu, err_lib) <= SLICE_REL_TOL, "command line results")
+    return entry, counts
+
+
 def main() -> int:
     import torch
 
@@ -670,6 +1203,7 @@ def main() -> int:
         from pnp_tpu_torch.operators import kernels as K
         from pnp_tpu_torch.operators import volume as V
         from pnp_tpu_torch.problems import pore_case, substeps_tableau
+        from pnp_tpu_torch.solvers import block_ras as BR
         from pnp_tpu_torch.solvers import direct
         from pnp_tpu_torch.utils.profiling import PhaseTimer, maybe_trace
         from pnp_tpu_torch.workloads.common import make_scalar_context
@@ -790,10 +1324,27 @@ def main() -> int:
     ras_res, ras_counts = ras_main(torch, K, W, direct, pore_case, dev)
     kry_counts = krylov_main(torch, K, W, direct, substeps_tableau(),
                              pore_case, dev)
-    ras_k = ras_kernel_checks(torch, K, direct, FA, V, make_scalar_context,
-                              ras_res.system, dev)
+    ras_k = ras_kernel_checks(torch, K, direct, FA, V, BR,
+                              make_scalar_context, ras_res.system, dev)
     ras_breakdown(torch, W, PhaseTimer, maybe_trace, ras_res, dev)
+    print(f"[block-RAS tier done] {time.perf_counter() - t_all:.1f} s",
+          flush=True)
+
+    # ---- 11-13. the inverse tiers above it, the other workloads -----------
+    mid_k, mid_counts = mid_species_main(torch, K, W, direct, pore_case,
+                                         ras_res, dev)
+    del ras_res
+    very_large_parity(torch, W, pore_case, dev)
+    large_k, large_shapes, large_counts = very_large_main(
+        torch, K, W, direct, FA, V, BR, make_scalar_context, pore_case, dev)
+    print(f"[inverse tiers done] {time.perf_counter() - t_all:.1f} s",
+          flush=True)
+    work_k, work_counts = workloads_phase(torch, K, W, make_scalar_context,
+                                          pore_case, dev)
     print(f"[done] {time.perf_counter() - t_all:.1f} s")
+    # once more, for a reader who sees the end of the output only
+    print("[card] nvidia-smi name, power.limit:")
+    print(smi)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -806,7 +1357,15 @@ def main() -> int:
          "launches_block_ras": ras_counts["gj_inverse"],
          "launches_species_krylov": kry_counts["gj_inverse"],
          "block_ras_shape": ras_k["gj"],
-         "poisson_shape": ras_k["gj_poisson"]},
+         "block_ras_pb_shape": ras_k["gj_pb"],
+         "poisson_shape": ras_k["gj_poisson"],
+         "launches_very_large": large_counts["gj_inverse"],
+         "launches_mid_species": mid_counts["gj_inverse"],
+         "launches_workloads": work_counts["gj_inverse"],
+         "poisson_large_shape": large_k,
+         "very_large_species_shape": large_shapes["gj"],
+         "very_large_pb_shape": large_shapes["gj_pb"],
+         "mid_species_shape": mid_k},
         {"name": "pb_residual_jacobian", "route": "cuda",
          "source": "pnp_tpu_torch/csrc/pb_element.cu",
          "replaces": "pnp_tpu/operators/pallas_kernels.py:105",
@@ -814,7 +1373,12 @@ def main() -> int:
          **{k: v for k, v in pb.items() if k != "E"},
          "launches_block_ras": ras_counts["pb_residual_jacobian"],
          "launches_species_krylov": kry_counts["pb_residual_jacobian"],
-         "block_ras_shape": ras_k["pb"]},
+         "launches_very_large": large_counts["pb_residual_jacobian"],
+         "launches_mid_species": mid_counts["pb_residual_jacobian"],
+         "launches_workloads": work_counts["pb_residual_jacobian"],
+         "block_ras_shape": ras_k["pb"],
+         "very_large_shape": large_shapes["pb"],
+         "workloads_shape": work_k},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,9 @@ takes a ``pnp_tpu`` object (or anything with the same attributes and
 array-likes) and returns the port's counterpart, so both packages compute
 on identical inputs: meshes, spaces, tables, fields, and the block-RAS
 pieces (block context, RAS factors with their p1 coarse tables, the
-mid-size Poisson inverse) so a solve can be compared with the
-preconditioner held equal. Nothing here imports ``pnp_tpu`` or ``jax``;
+Poisson inverse of the mid-size and of the very-large tier, a species
+factor of either kind) so a solve can be compared with the preconditioner
+held equal, and the composite state of the monolithic workloads. Nothing here imports ``pnp_tpu`` or ``jax``;
 arrays pass through ``numpy.asarray``.
 """
 
@@ -96,6 +97,31 @@ def ras_factor(src, device="cpu"):
     return torch.tensor(np.asarray(src, np.float32), device=device)
 
 
-def poisson_inverse(src, device="cpu"):
-    """The mid-size tier's (1, N, N) f32 Poisson inverse."""
+def poisson_inverse(src, device="cpu", ndof=None):
+    """The mid-size tier's (1, N, N) f32 Poisson inverse, or the very-large
+    tier's scaled pair ``(X_eq, s)``. The reference keeps that pair padded
+    to a multiple of 128 (identity on the pad); ``ndof`` crops it to the
+    port's unpadded size."""
+    if isinstance(src, tuple):
+        X_eq, s = (np.asarray(a, np.float32) for a in src)
+        n = X_eq.shape[-1] if ndof is None else ndof
+        return (torch.tensor(X_eq[:, :n, :n], device=device),
+                torch.tensor(s[:n], device=device))
     return torch.tensor(np.asarray(src, np.float32), device=device)
+
+
+def species_factor(src, device="cpu"):
+    """A species factor of either kind: the dense tier's (2, N, N) f32
+    stage inverses, a RAS factor, or the mid-size species tier's tagged
+    pair ``("inv", inverses)`` / ``("ras", RAS factor)``."""
+    if isinstance(src, tuple) and isinstance(src[0], str):
+        return (src[0], ras_factor(src[1], device))
+    return ras_factor(src, device)
+
+
+def composite_state(u0, free, g, device="cpu"):
+    """The monolithic workloads' composite state ``(u0, free, g)`` over
+    3 * ndof dofs -> (f64, bool, f64) tensors."""
+    return (f64(u0, device),
+            torch.tensor(np.asarray(free, bool), device=device),
+            f64(g, device))

@@ -9,11 +9,14 @@ in-repo structured pore mesh.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
 from .config import DIRICHLET, NEUMANN, Surface, Sysparams
 from .fem.space import FunctionSpace
-from .meshio.structured import pore_without_dna_mesh
+from .meshio.mesh import Mesh
+from .meshio.structured import pore_without_dna_mesh, rect_mesh
 from .timestepping.tableaux import Tableau
 
 #: pore_pnp's surface charge and bias (SURVEY.md, pore_pnp configuration)
@@ -53,6 +56,77 @@ def pore_case(nx: int = 100, ny: int = 55, degree: int = 1):
     triangles (the dense tier's full-size case), (30, 17) 488 nodes."""
     return pore_sysparams(), FunctionSpace(pore_without_dna_mesh(nx, ny),
                                            degree)
+
+
+def one_wall_sysparams() -> Sysparams:
+    """Parameters of a one-wall (Debye-Hueckel class) case on a
+    :func:`~.meshio.structured.rect_mesh`: group 0 the charged wall at
+    x = 0 (phi flux 0.2, no ion flux), 1 the far side (phi = 0,
+    c+- = c0 = 0.06), 2/3 closed."""
+    c0 = 0.06
+    wall = _surface(NEUMANN, 0.0, 0.2, NEUMANN, 0.0)
+    far = _surface(DIRICHLET, 0.0, 0.0, DIRICHLET, c0)
+    closed = _surface(NEUMANN, 0.0, 0.0, NEUMANN, 0.0)
+    return Sysparams(
+        n_surfaces=4, cylindrical=False, l_b=1.0, c0=c0, tau=0.1, nSteps=4,
+        linearSolver="BCGS_SSORk", linearSolverIterations=20000,
+        newtonReduction=1e-9, newtonMinLinearReduction=1e-8,
+        outputFreq=1, potentialUpdateFreq=1,
+        surfaces=[wall, far, closed, closed])
+
+
+def one_wall_case(nx: int = 40, ny: int = 4, degree: int = 1):
+    """(Sysparams, FunctionSpace) of the one-wall case on a 5 x 0.5
+    rectangle of ``nx`` x ``ny`` cells."""
+    return one_wall_sysparams(), FunctionSpace(rect_mesh(nx, ny, 5.0, 0.5),
+                                               degree)
+
+
+def write_gmsh(mesh: Mesh, path: str) -> None:
+    """Write ``mesh`` as a Gmsh 2.2 ASCII file (boundary lines, then
+    triangles, each with its physical group), which
+    :func:`~.meshio.gmsh.read_gmsh` reads back to the same arrays."""
+    with open(path, "w") as f:
+        f.write("$MeshFormat\n2.2 0 8\n$EndMeshFormat\n")
+        f.write(f"$Nodes\n{mesh.num_nodes}\n")
+        for i, (x, y) in enumerate(mesh.nodes, 1):
+            f.write(f"{i} {float(x)!r} {float(y)!r} 0\n")
+        f.write("$EndNodes\n")
+        f.write(f"$Elements\n{len(mesh.edges) + mesh.num_tris}\n")
+        k = 1
+        for (a, b), g in zip(mesh.edges, mesh.edge_phys):
+            f.write(f"{k} 1 2 {g} {g} {a + 1} {b + 1}\n")
+            k += 1
+        for (a, b, c), g in zip(mesh.tris, mesh.tri_phys):
+            f.write(f"{k} 2 2 {g} {g} {a + 1} {b + 1} {c + 1}\n")
+            k += 1
+        f.write("$EndElements\n")
+
+
+def write_config(sys: Sysparams, path: str, meshfile: str) -> None:
+    """Write ``sys`` as an INI file that :func:`~.config.read_config` reads
+    back to the same values; ``meshfile`` goes in as given (a relative name
+    is resolved against the config file's directory on reading)."""
+    skip = {"meshfile", "surfaces"}
+    lines = ["[mesh]", f"filename = {meshfile}", "", "[system]"]
+    for fld in dataclasses.fields(Sysparams):
+        if fld.name in skip:
+            continue
+        v = getattr(sys, fld.name)
+        if isinstance(v, bool):
+            v = int(v)
+        lines.append(f"{fld.name} = {v!r}" if isinstance(v, float)
+                     else f"{fld.name} = {v}")
+    for i, surf in enumerate(sys.surfaces):
+        lines += ["", f"[surface_{i}]"]
+        for fld in ("coulombBtype", "coulombPotential", "coulombFlux",
+                    "plusDiffusionBtype", "plusDiffusionConcentration",
+                    "plusDiffusionFlux", "minusDiffusionBtype",
+                    "minusDiffusionConcentration", "minusDiffusionFlux"):
+            v = getattr(surf, fld)
+            lines.append(f"{fld} = {v!r}")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
 
 
 def substeps_tableau(lengths=(0.2, 0.3, 0.5)) -> Tableau:

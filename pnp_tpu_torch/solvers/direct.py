@@ -13,8 +13,10 @@ Each refinement step cuts the error by about kappa(A) * eps_f32. The
 refinement loop checks its residual on the host once per step.
 :func:`make_lu_refine_solver` is the same loop on f32 LU factors
 (``torch.linalg.lu_factor``; the reference uses ``jax.scipy`` LU there).
-The reference's very-large Poisson tier (``inv_f32_setup_large`` and the
-scaled ``(X_eq, s)`` inverse) runs only on a TPU and is not ported yet.
+The very-large Poisson tier keeps its one (ndof, ndof) inverse in the
+equilibrated form ``(X_eq, s)`` (:func:`inv_f32_setup_large`,
+:func:`scaled_inv_apply`): a second buffer of that size for the unscaled
+inverse is never made.
 """
 
 from __future__ import annotations
@@ -24,8 +26,9 @@ import torch
 from ..fem import assembly as FA
 from ..operators import kernels as K
 
-# contraction-probe failures of batched_inv_f32 in this process (each one
-# raises; the count lets a caller report how many it saw)
+# contraction-probe failures in this process: batched_inv_f32 raises on one,
+# inv_f32_setup_large and the mid-size species factor return the verdict;
+# the count lets a caller report how many it saw
 probe_failures = {"count": 0}
 
 
@@ -84,6 +87,20 @@ def batched_inv_f32(A_dense, batch_names=("matrix",), batch_shape=None):
     return X
 
 
+def inv_f32_probe(A_dense):
+    """(S, N, N) -> ``(X, ok)``: the f32 inverses by kernel 1 and the
+    batch's :func:`contraction_ok` verdict, for a caller with another path
+    to take on ``False`` (the mid-size species tier keeps its RAS factor
+    for that refresh window). A ``False`` is counted in
+    ``probe_failures``."""
+    A32 = A_dense.to(torch.float32)
+    X = K.gj_inverse(A32)
+    ok = contraction_ok(A32, X)
+    if not ok:
+        probe_failures["count"] += 1
+    return X, ok
+
+
 def inv_f32_setup(A_dense):
     """Setup-time f32 inverse of a constant operator (the mid-size Poisson
     tier): :func:`batched_inv_f32`, kernel 1 plus the probe. A failed probe
@@ -97,17 +114,57 @@ def batched_lu_factor_f32(A_dense):
 
 
 def scaled_inv_apply(Ainv, rk):
-    """Preconditioner apply d = X rk in true f32, output in rk's dtype.
+    """Preconditioner apply for a plain or an ``(X_eq, s)`` scaled inverse,
+    in IEEE f32 (no TF32), output in rk's dtype.
 
-    The reference's scaled ``(X_eq, s)`` form belongs to its very-large
-    Poisson tier, which runs only on a TPU and is not ported yet."""
+    Plain: d = X rk. Scaled (the very-large Poisson tier, whose inverse is
+    computed on the pre-equilibrated matrix A_eq = S A S and never
+    unscaled): d = S (X_eq (S rk)), X_eq (1, N, N) f32 and s (N,) f32.
+    The reference keeps X_eq at a 128-padded size and pads and crops the
+    vectors here; that pad serves its TPU kernel's lane width, kernel 1
+    takes any N, so here X_eq has exactly rk's length."""
     if isinstance(Ainv, tuple):
-        raise NotImplementedError(
-            "scaled (X_eq, s) inverses belong to the very-large Poisson "
-            "tier (ROADMAP: modules to port, 'Very-large Poisson tier and "
-            "mid-size species tier')")
+        X_eq, s = Ainv
+        v = (rk * s).to(torch.float32)
+        d = torch.einsum("sij,sj->si", X_eq, v)
+        return (d * s).to(rk.dtype)
     d = torch.einsum("sij,sj->si", Ainv, rk.to(torch.float32))
     return d.to(rk.dtype)
+
+
+def inv_f32_setup_large(A_eq32, s32, op_probe):
+    """The very-large tier's setup inverse: kernel 1 without its own
+    equilibration on the pre-equilibrated (1, N, N) f32 matrix A_eq = S A S
+    (the caller assembles it from scaled element blocks, one buffer), then
+    the contraction probe against the matrix-free f64 element operator
+    ``op_probe`` (batched, constrained) instead of a dense A: two
+    refinement steps x <- x + S X_eq S (b - A x) on b = A v must reach
+    0.25 ||b|| for both :func:`probe_vectors` (smooth and rough), and X_eq
+    must be finite. Returns ``(X_eq, ok)``.
+
+    ``ok == False`` is a verdict of the arithmetic, counted in
+    ``probe_failures``: the caller keeps its iterative Poisson path. A
+    kernel that does not build or launch raises."""
+    if A_eq32.shape[0] != 1:
+        raise ValueError("very-large tier: one matrix per call")
+    n = A_eq32.shape[-1]
+    X_eq = K.gj_inverse(A_eq32, equilibrate=False)
+    pre = (X_eq, s32)
+    # finite: by the extremes, which carry a NaN along (an elementwise
+    # isfinite would make temporaries of the matrix's own size)
+    ok = torch.isfinite(torch.stack(torch.aminmax(X_eq))).all()
+    for v in probe_vectors(n, device=A_eq32.device).to(torch.float64):
+        b = op_probe(v[None])
+        x1 = scaled_inv_apply(pre, b)
+        r1 = b - op_probe(x1)
+        x2 = x1 + scaled_inv_apply(pre, r1)
+        nb = torch.linalg.vector_norm(b, dim=-1)
+        nr2 = torch.linalg.vector_norm(b - op_probe(x2), dim=-1)
+        ok = ok & torch.all(torch.isfinite(nr2) & (nr2 <= 0.25 * nb))
+    ok = bool(ok)
+    if not ok:
+        probe_failures["count"] += 1
+    return X_eq, ok
 
 
 def make_inv_refine_solver_arg(A_el, dofmap, ndof: int, free,

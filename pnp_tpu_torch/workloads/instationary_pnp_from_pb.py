@@ -16,8 +16,13 @@ Parity: reference ``instationary_pnp_md``
      * block-RAS tier, mid-size (ndof <= ``poisson_inv_threshold`` and
        <= POISSON_INV_MAX_DOFS): one f32 inverse by the Gauss-Jordan
        kernel, each re-solve an f64-residual refinement to 1e-10;
-     * block-RAS tier above that: two-level RAS (local inverses + the
-       piecewise-linear coarse space), f64 BiCGSTAB to 1e-10;
+     * block-RAS tier, very large (POISSON_INV_MAX_DOFS < ndof <=
+       ``poisson_inv_threshold``): the same with the one (ndof, ndof) f32
+       inverse kept in its equilibrated form (X_eq, s), assembled from
+       scaled element blocks and probed against the element operator;
+     * block-RAS tier above that, or where the very-large inverse fails
+       its probe: two-level RAS (local inverses + the piecewise-linear
+       coarse space), f64 BiCGSTAB to 1e-10;
      * above the dense tier with another solver variant than
        ``BCGS_SSORk``: that variant's Krylov solve to 1e-10 on the
        assembled diagonal, with the lambda_max(D^-1 A) estimate of setup.
@@ -33,18 +38,20 @@ Parity: reference ``instationary_pnp_md``
      block-RAS tier each stage builds its own local
      inverses (kernel 1 once a stage), elsewhere, and for every other
      solver variant above the dense tier, each stage is that variant's
-     Krylov solve on the batched diagonal. Poisson re-solve every
+     Krylov solve on the batched diagonal. With ``species_inv_threshold``
+     (off by default) the block-RAS tier's refresh builds the dense
+     (2, ndof, ndof) f32 stage inverses instead (kernel 1 and the probe)
+     and reuse steps refine with them; a refresh whose probe fails keeps
+     the RAS factor for its window. Poisson re-solve every
      potentialUpdateFreq; ion flux + output every outputFreq; final
      Poisson solve.
 
 Reference behaviours kept: the species operators carry NO axisymmetric
 weight even in cylindrical runs (src/diffusion_operator.hh:100; PB and
 Poisson do carry it); quadrature orders 3 (PB/Poisson), 2 (species
-spatial), 5 (species mass); dt = tau. Above the mid-size bound the port
-takes the two-level RAS Poisson, as the reference does off the TPU.
+spatial), 5 (species mass); dt = tau.
 
-Not ported yet (ROADMAP): the multi-device mesh, ``CG_AMG_SSOR``, and
-the TPU-only very-large Poisson and mid-size species tiers.
+Not ported yet (ROADMAP): the multi-device mesh and ``CG_AMG_SSOR``.
 """
 
 from __future__ import annotations
@@ -69,8 +76,8 @@ from ..postprocess.ionflux import build_ionflux_tables, calc_ion_flux
 from ..io.writers import write_dat, write_vtu, CurrentWriter
 from ..io.checkpoint import save_checkpoint, load_checkpoint
 from ..solvers import block_ras as BR
-from ..solvers.direct import (batched_inv_f32, inv_f32_setup,
-                              make_inv_refine_solver,
+from ..solvers.direct import (batched_inv_f32, inv_f32_probe, inv_f32_setup,
+                              inv_f32_setup_large, make_inv_refine_solver,
                               make_inv_refine_solver_arg)
 from ..solvers.krylov import bicgstab
 from ..solvers.linear_problem import make_krylov_solver
@@ -82,8 +89,9 @@ from .pb import solve_pb
 F32 = torch.float32
 F64 = torch.float64
 
-#: upper bound of the mid-size Poisson tier (its (ndof, ndof) f32 inverse);
-#: above it the block-RAS tier solves Poisson by two-level RAS
+#: upper bound of the mid-size Poisson tier (its (ndof, ndof) f32 inverse,
+#: equilibrated and unscaled inside kernel 1's wrapper); above it, up to
+#: ``poisson_inv_threshold``, the very-large tier keeps the inverse scaled
 POISSON_INV_MAX_DOFS = 16384
 
 
@@ -99,6 +107,26 @@ def _spectral_probe(ndof: int, device):
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def equilibrated_dense_f32(A_el, dofmap, ndof: int, free):
+    """The constrained operator's equilibrated dense matrix A_eq = S A S in
+    f32, (ndof, ndof), and the scale s = 1/sqrt|diag| (ndof,) f32, built
+    without an unscaled or f64 copy (the very-large tier counts its
+    (ndof, ndof) buffers): the element blocks are scaled on both sides by
+    (free * s)[dofmap] and cast to f32 before the scatter, so Dirichlet
+    rows and columns come out zero, and the identity is put back on their
+    diagonal (s = 1 there)."""
+    d = FA.constrained_diagonal(A_el, dofmap, ndof, free)
+    s = torch.rsqrt(torch.clamp_min(d.abs(), 1e-30)).to(F32)
+    free32 = free.to(F32)
+    w_el = (free32 * s)[dofmap]                              # (E, n)
+    Am = A_el.to(F32) * w_el[:, :, None] * w_el[:, None, :]
+    A_eq = torch.zeros((ndof, ndof), dtype=F32, device=A_el.device)
+    A_eq.index_put_((dofmap[:, :, None].expand_as(Am),
+                     dofmap[:, None, :].expand_as(Am)), Am, accumulate=True)
+    A_eq.diagonal().add_(1.0 - free32)
+    return A_eq, s
 
 
 @dataclasses.dataclass
@@ -122,19 +150,25 @@ class PnpSystem:
     dt: float
     # factor-amortized species stepping; ``factor_kind`` "dense" (f32
     # stage inverses) or "ras" (f32 local inverses, with the batched p1
-    # coarse tables when ``species_two_level``). All None where no one
-    # factor serves every stage (the species Krylov path).
+    # coarse tables when ``species_two_level``; with the mid-size species
+    # tier a tagged pair, ("inv", stage inverses) or ("ras", that factor),
+    # by each refresh's probe). All None where no one factor serves every
+    # stage (the species Krylov path).
     species_factor: Any = None       # (uphi) -> factor
     species_step_reuse: Any = None   # (factor, uphi, ucp, ucm) -> (...)
     factor_kind: Any = None
+    # the mid-size species tier is on: ``species_factor`` returns, and
+    # ``species_step_reuse`` takes, the tagged pair
+    mid_species: bool = False
     fused_step_reuse: Any = None     # (factor, uphi, ucp, ucm) -> state'
-    # dense tier: (uphi) -> (2, ndof, ndof) f32 constrained stage matrices;
-    # block-RAS tier: (uphi) -> (2, K, L, L) f32 local stage matrices
+    # dense tier and mid-size species tier: (uphi) -> (2, ndof, ndof) f32
+    # constrained stage matrices; block-RAS tier: (uphi) -> (2, K, L, L)
+    # f32 local stage matrices
     species_dense_f32: Any = None
     species_local_f32: Any = None
     # Poisson setup state: "dense" (P, q) | "inverse" (1, N, N) f32 |
-    # "ras" (local inverses, p1 coarse tables) | "krylov" (the assembled
-    # diagonal)
+    # "inverse_large" (X_eq (1, N, N) f32, s (N,) f32) | "ras" (local
+    # inverses, p1 coarse tables) | "krylov" (the assembled diagonal)
     poisson_tier: str = "dense"
     poisson_pre: Any = None
     # lambda_max(D^-1 A) estimates with their 1.2 headroom, where a Krylov
@@ -168,13 +202,16 @@ def build_pnp_system(
     ``dense_poisson_threshold``: the dense tier's size bound; above it
     (with ``BCGS_SSORk``) the block-RAS tier with blocks of about
     ``ras_block_size`` dofs, and with any other solver variant that
-    variant's Krylov solves. ``poisson_inv_threshold``: the mid-size
-    Poisson inverse serves up to this many dofs (and at most
-    POISSON_INV_MAX_DOFS); 0 forces two-level RAS. ``species_two_level``
-    adds the batched p1 coarse level to the species RAS factor (a
-    tableau with a uniform stage diagonal only, as in the reference).
-    ``species_inv_threshold`` > 0 (the reference's TPU-only mid-size
-    species tier) is not ported.
+    variant's Krylov solves. ``poisson_inv_threshold``: the Poisson
+    inverse tiers serve up to this many dofs (mid-size up to
+    POISSON_INV_MAX_DOFS, very large above); 0 forces two-level RAS.
+    ``species_two_level`` adds the batched p1 coarse level to the species
+    RAS factor (a tableau with a uniform stage diagonal only, as in the
+    reference). ``species_inv_threshold`` (default 0, off): up to this
+    many dofs the block-RAS tier's ``species_factor`` builds the dense f32
+    stage inverses and, where they pass the contraction probe, reuse
+    steps refine with them instead of running RAS BiCGSTAB. The reference
+    offers it on a TPU only; here it runs on any device.
     """
     device = resolve_device(device)
     tab = tableau if tableau is not None else alexander2()
@@ -185,11 +222,6 @@ def build_pnp_system(
         raise NotImplementedError(
             "multi-device runs are not ported yet "
             "(ROADMAP: modules to port, 'Multi-device')")
-    if species_inv_threshold > 0:
-        raise NotImplementedError(
-            "the mid-size species inverse tier is not ported yet (ROADMAP: "
-            "modules to port, 'Very-large Poisson tier and mid-size species "
-            "tier')")
     a_tab = [[float(v) for v in row] for row in tab.A]
     b_tab = [[float(v) for v in row] for row in tab.B]
     stages = tab.stages
@@ -205,6 +237,7 @@ def build_pnp_system(
     use_dense_species = use_dense and uniform_stage_diag
     use_ras_factor = use_block_ras and uniform_stage_diag
     use_species_krylov = not use_dense_species and not use_block_ras
+    use_mid_species = use_ras_factor and ndof <= species_inv_threshold
     species_two_level = species_two_level and use_block_ras
 
     # ---- Phase A: PB bootstrap ------------------------------------------
@@ -279,6 +312,7 @@ def build_pnp_system(
     else:
         ctx_ras = BR.build_block_context_for_space(space, ras_block_size,
                                                    device)
+        poisson_pre = None
         if ndof <= min(poisson_inv_threshold, POISSON_INV_MAX_DOFS):
             # mid-size tier: one f32 inverse of the constant operator
             # (kernel 1 + the probe); every 1e-10 re-solve is an
@@ -289,11 +323,30 @@ def build_pnp_system(
                                               ctx_phi.free)
             poisson_pre = inv_f32_setup(A32[None])
             del A32
+        elif ndof <= poisson_inv_threshold:
+            # very-large tier: one (ndof, ndof) f32 inverse, kept in its
+            # equilibrated form. Kernel 1 holds its working copy and its
+            # output beside A_eq; A_eq and the working copy are freed
+            # before the run state is made
+            dm = vt_phi.dofmap
+            A_eq, s_phi = equilibrated_dense_f32(A_phi_el, dm, ndof,
+                                                 ctx_phi.free)
+            X_eq, ok = inv_f32_setup_large(
+                A_eq[None], s_phi, FA.make_constrained_operator_batched(
+                    A_phi_el[None], dm, ndof, ctx_phi.free[None]))
+            del A_eq
+            if ok:
+                poisson_tier = "inverse_large"
+                poisson_pre = (X_eq, s_phi)
+            del X_eq
+        if poisson_pre is not None:
             solve_phi_inv = make_inv_refine_solver_arg(
                 A_phi_el[None], vt_phi.dofmap, ndof, ctx_phi.free[None])
         else:
-            # two-level RAS factors, built once: local inverses + the
-            # piecewise-linear coarse space (3 modes per block)
+            # two-level RAS factors, built once (above the inverse tiers,
+            # or where the very-large inverse failed its probe): local
+            # inverses + the piecewise-linear coarse space (3 modes per
+            # block)
             poisson_tier = "ras"
             poisson_pre = (
                 BR.build_local_inverses(ctx_ras, A_phi_el, ctx_phi.free),
@@ -492,16 +545,29 @@ def build_pnp_system(
     def species_factor(uphi_):
         """The stage factor at the current potential, reusable across
         steps while phi drifts: a stale factor only raises the refinement
-        or Krylov counts (each stage solve checks its own residual)."""
+        or Krylov counts (each stage solve checks its own residual). The
+        mid-size species tier returns a tagged pair: ("inv", the dense
+        f32 stage inverses) where they pass the contraction probe, else
+        ("ras", the RAS factor) for this refresh window."""
         if use_dense_species:
             return batched_inv_f32(_species_dense_f32(uphi_))
+        if use_mid_species:
+            X, ok = inv_f32_probe(_species_dense_f32(uphi_))
+            if ok:
+                return ("inv", X)
+            del X
+            return ("ras", _ras_factor(_build_K_pair(uphi_)))
         return _ras_factor(_build_K_pair(uphi_))
 
     def species_step_reuse(factor, uphi_, ucp_, ucm_):
         """Both species' stages with a possibly stale factor."""
         K_pair = _build_K_pair(uphi_)
         u_old = torch.stack([ucp_, ucm_])
-        if use_dense_species:
+        dense_factor = use_dense_species
+        if use_mid_species:
+            kind, factor = factor
+            dense_factor = kind == "inv"
+        if dense_factor:
             out, iters = _species_pair_onestep(K_pair, u_old, factor)
         else:
             out, iters = _species_pair_onestep(K_pair, u_old, None, factor)
@@ -517,14 +583,15 @@ def build_pnp_system(
     def poisson_solve(uphi_, ucp_, ucm_, phi_pre=None):
         """SLP apply at tolerance 1e-10 (reference :349-350): the affine
         form's one matvec (dense), f64-residual refinement with the f32
-        inverse (mid-size), two-level-RAS BiCGSTAB (above), or the
+        inverse (mid-size; very large: in its scaled form), two-level-RAS
+        BiCGSTAB (above), or the
         configured Krylov variant on the assembled diagonal."""
         pre = poisson_pre if phi_pre is None else phi_pre
         if poisson_tier == "dense":
             P_phi, q_phi = pre
             return q_phi + P_phi @ (ucm_ - ucp_), 1
         r = _poisson_residual(uphi_, ucp_, ucm_)
-        if poisson_tier == "inverse":
+        if solve_phi_inv is not None:
             x, k = solve_phi_inv(pre, r[None], 1e-10)
             return uphi_ - x[0], k
         if poisson_tier == "krylov":
@@ -567,9 +634,10 @@ def build_pnp_system(
                                             sys.n_surfaces, device),
         dt=dt, species_factor=species_factor if has_factor else None,
         species_step_reuse=species_step_reuse if has_factor else None,
-        factor_kind=factor_kind,
+        factor_kind=factor_kind, mid_species=use_mid_species,
         fused_step_reuse=fused_step_reuse if has_factor else None,
-        species_dense_f32=_species_dense_f32 if use_dense_species else None,
+        species_dense_f32=(_species_dense_f32
+                           if use_dense_species or use_mid_species else None),
         species_local_f32=_species_local_f32 if use_ras_factor else None,
         poisson_tier=poisson_tier, poisson_pre=poisson_pre,
         lam_phi=lam_phi, lam_species=lam_species,
@@ -599,6 +667,10 @@ class PnpRunResult:
     species_iterations: list = dataclasses.field(default_factory=list)
     poisson_iterations: list = dataclasses.field(default_factory=list)
     factor_rebuilt: list = dataclasses.field(default_factory=list)
+    # per step, the kind of species factor it ran on: "dense", "ras", with
+    # the mid-size species tier "inv" or "ras" by its window's probe, None
+    # on the species Krylov path
+    factor_kinds: list = dataclasses.field(default_factory=list)
     system: Any = None         # the PnpSystem the run stepped
 
 
@@ -619,6 +691,7 @@ def run_instationary_pnp_from_pb(
     ras_block_size: int = 256,
     ras_refresh_every: Optional[int] = None,
     poisson_inv_threshold: int = 49152,
+    species_inv_threshold: int = 0,
     device=None,
 ) -> PnpRunResult:
     """Run phases A-D on ``device`` (default: the current CUDA device;
@@ -639,6 +712,7 @@ def run_instationary_pnp_from_pb(
                               dense_poisson_threshold=dense_poisson_threshold,
                               ras_block_size=ras_block_size,
                               poisson_inv_threshold=poisson_inv_threshold,
+                              species_inv_threshold=species_inv_threshold,
                               device=device)
     if ras_refresh_every is None:
         ras_refresh_every = 4 if system.factor_kind == "ras" else 1
@@ -667,7 +741,7 @@ def run_instationary_pnp_from_pb(
             write_dat(space, _host(vec), os.path.join(output_dir, f"{name}.dat"))
 
     history, step_ms = [], []
-    species_its, poisson_its, rebuilt = [], [], []
+    species_its, poisson_its, rebuilt, kinds = [], [], [], []
     use_ras_reuse = ras_refresh_every > 1 and system.factor_kind == "ras"
     ras_factor = None
     try:
@@ -691,6 +765,9 @@ def run_instationary_pnp_from_pb(
             species_its.append(k)
             poisson_its.append(kp)
             rebuilt.append(fresh)
+            # the mid-size species tier tags its factor with its kind
+            kinds.append(ras_factor[0] if use_ras_reuse and system.mid_species
+                         else system.factor_kind)
             time += dt
             if i % sys.outputFreq == 0:
                 output_counter += 1
@@ -736,4 +813,4 @@ def run_instationary_pnp_from_pb(
         pb_seconds=system.pb_seconds,
         poisson_setup_seconds=system.poisson_setup_seconds, step_ms=step_ms,
         species_iterations=species_its, poisson_iterations=poisson_its,
-        factor_rebuilt=rebuilt, system=system)
+        factor_rebuilt=rebuilt, factor_kinds=kinds, system=system)

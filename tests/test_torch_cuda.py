@@ -293,3 +293,103 @@ def test_solver_variant_above_dense_tier_on_card(cuda, solver):
     for name in ("phi", "cp", "cm"):
         x, y = getattr(a, name).cpu(), getattr(b, name)
         assert float((x - y).abs().max()) <= 1e-8 * float(y.abs().max())
+
+
+def _fields_close(a, b, tol):
+    for name in ("phi", "cp", "cm"):
+        x, y = getattr(a, name).cpu(), getattr(b, name).cpu()
+        assert float((x - y).abs().max()) <= tol * float(y.abs().max()), name
+
+
+def test_very_large_poisson_tier_on_card_matches_cpu(cuda, monkeypatch):
+    """The very-large Poisson tier forced at 488 nodes (the mid-size bound
+    set to 0): the equilibrated (X_eq, s) inverse by kernel 1 without its
+    own equilibration, two presolved steps on the card against the CPU;
+    refinement counts within one, fields to 1e-9 relative."""
+    from pnp_tpu_torch.workloads import instationary_pnp_from_pb as W
+
+    monkeypatch.setattr(W, "POISSON_INV_MAX_DOFS", 0)
+    sys_, space = pore_case(30, 17)
+    kw = dict(n_steps=2, presolve_potential=True, **BLOCK_RAS)
+    K.reset_launch_counts()
+    a = run_instationary_pnp_from_pb(sys_, space, device=cuda, **kw)
+    assert K.launches["gj_inverse"] == 1 + 1       # Poisson, one RAS factor
+    b = run_instationary_pnp_from_pb(sys_, space, device="cpu", **kw)
+    assert a.system.poisson_tier == b.system.poisson_tier == "inverse_large"
+    X_eq, s = a.system.poisson_pre
+    assert X_eq.is_cuda and tuple(X_eq.shape) == (1, 488, 488)
+    assert max(abs(p - q) for p, q in zip(a.poisson_iterations,
+                                          b.poisson_iterations)) <= 1
+    _fields_close(a, b, 1e-9)
+
+
+def test_mid_species_tier_on_card_matches_cpu(cuda):
+    """The mid-size species tier forced at 488 nodes: four presolved steps
+    with a refresh every 2, the (2, 488, 488) stage inverses by kernel 1 at
+    each refresh, on the card against the CPU; every window on inverses,
+    refinement counts within one, fields to 1e-9 relative."""
+    sys_, space = pore_case(30, 17)
+    kw = dict(n_steps=4, presolve_potential=True, ras_refresh_every=2,
+              species_inv_threshold=488, **BLOCK_RAS)
+    K.reset_launch_counts()
+    a = run_instationary_pnp_from_pb(sys_, space, device=cuda, **kw)
+    assert K.launches["gj_inverse"] == 1 + 2       # Poisson, two refreshes
+    b = run_instationary_pnp_from_pb(sys_, space, device="cpu", **kw)
+    assert a.factor_kinds == b.factor_kinds == ["inv"] * 4
+    assert max(abs(p - q) for p, q in zip(a.species_iterations,
+                                          b.species_iterations)) <= 1
+    _fields_close(a, b, 1e-9)
+
+
+def test_other_workloads_on_card_match_cpu(cuda):
+    """The stationary diffusion solve, the monolithic Newton solve from PB
+    and five explicit steps on the card against the CPU, to 1e-9 relative;
+    the two that bootstrap from PB launch kernel 2."""
+    from pnp_tpu_torch.problems import one_wall_case
+    from pnp_tpu_torch.workloads.instationary_pnp import run_instationary_pnp
+    from pnp_tpu_torch.workloads.stationary_diffusion import (
+        run_stationary_diffusion)
+    from pnp_tpu_torch.workloads.stationary_pnp import run_stationary_pnp
+
+    sys_, space = one_wall_case(40, 4)
+    ua, ra = run_stationary_diffusion(sys_, space, 1e-12, device=cuda)
+    ub, rb = run_stationary_diffusion(sys_, space, 1e-12, device="cpu")
+    assert ua.is_cuda and abs(ra.iterations - rb.iterations) <= 1
+    assert float((ua.cpu() - ub).abs().max()) <= 1e-9 * float(ub.abs().max())
+    K.reset_launch_counts()
+    na = run_stationary_pnp(sys_, space, from_pb=True, device=cuda)
+    assert K.launches["pb_residual_jacobian"] > 0
+    nb = run_stationary_pnp(sys_, space, from_pb=True, device="cpu")
+    assert na.converged and na.iterations == nb.iterations
+    assert float((na.u.cpu() - nb.u).abs().max()) <= 1e-9 * float(
+        nb.u.abs().max())
+    K.reset_launch_counts()
+    ea = run_instationary_pnp(sys_, space, n_steps=5, device=cuda)
+    assert K.launches["pb_residual_jacobian"] > 0
+    eb = run_instationary_pnp(sys_, space, n_steps=5, device="cpu")
+    assert ea.dt == eb.dt
+    _fields_close(ea, eb, 1e-9)
+
+
+def test_command_line_defaults_to_the_card(cuda, tmp_path):
+    """``python -m pnp_tpu_torch`` without ``--device`` runs on the card."""
+    import os
+    import subprocess
+    import sys
+
+    from pnp_tpu_torch import problems
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys_, space = problems.one_wall_case(20, 3)
+    problems.write_gmsh(space.mesh, str(tmp_path / "one_wall.msh"))
+    problems.write_config(sys_, str(tmp_path / "one_wall.cfg"),
+                          "one_wall.msh")
+    r = subprocess.run(
+        [sys.executable, "-m", "pnp_tpu_torch", "--steps", "2", "-o",
+         str(tmp_path / "out"), str(tmp_path / "one_wall.cfg")],
+        env=dict(os.environ, PYTHONPATH=repo), cwd=repo,
+        capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "device cuda" in r.stdout
+    assert "assembled-solved DOFs/s" in r.stdout
+    assert (tmp_path / "out" / "current.dat").exists()

@@ -6,12 +6,16 @@ tests/test_torch_cuda.py."""
 import pytest
 import torch
 
-from pnp_tpu_torch.problems import pore_case
+from pnp_tpu_torch.problems import one_wall_case, pore_case
 from pnp_tpu_torch.utils.device import resolve_device
 from pnp_tpu_torch.workloads.common import make_scalar_context
 from pnp_tpu_torch.workloads.instationary_pnp_from_pb import (
     build_pnp_system, run_instationary_pnp_from_pb)
+from pnp_tpu_torch.workloads.instationary_pnp import run_instationary_pnp
 from pnp_tpu_torch.workloads.pb import solve_pb
+from pnp_tpu_torch.workloads.stationary_diffusion import (
+    run_stationary_diffusion)
+from pnp_tpu_torch.workloads.stationary_pnp import run_stationary_pnp
 
 torch.set_num_threads(1)
 
@@ -24,6 +28,16 @@ ENTRY_POINTS = {
     "make_scalar_context":
         lambda s, sp, **kw: make_scalar_context(s, sp, component=0,
                                                 quad_order=3, **kw),
+    # the other workloads, on the one-wall case (the monolithic Newton
+    # solve does not converge under the pore case's bias)
+    "run_stationary_diffusion":
+        lambda s, sp, **kw: run_stationary_diffusion(*one_wall_case(10, 2),
+                                                     **kw),
+    "run_stationary_pnp":
+        lambda s, sp, **kw: run_stationary_pnp(*one_wall_case(10, 2), **kw),
+    "run_instationary_pnp":
+        lambda s, sp, **kw: run_instationary_pnp(*one_wall_case(10, 2),
+                                                 n_steps=2, **kw),
 }
 
 
@@ -46,7 +60,10 @@ def test_entry_point_runs_on_cpu_when_asked(no_cuda, name):
     field = {"run_instationary_pnp_from_pb": lambda r: r.phi,
              "build_pnp_system": lambda r: r.pb,
              "solve_pb": lambda r: r.u,
-             "make_scalar_context": lambda r: r.dirichlet}[name](out)
+             "make_scalar_context": lambda r: r.dirichlet,
+             "run_stationary_diffusion": lambda r: r[0],
+             "run_stationary_pnp": lambda r: r.u,
+             "run_instationary_pnp": lambda r: r.phi}[name](out)
     assert field.device.type == "cpu" and bool(field.isfinite().all())
 
 

@@ -286,10 +286,22 @@ def test_dense_factor_reuse():
 
 
 def test_unported_options_raise(case):
+    """``species_inv_threshold`` no longer raises: the mid-size species
+    tier builds the stage inverses at a refresh and tags them
+    (tests/test_torch_large_tiers.py holds the tier to the reference).
+    ``CG_AMG_SSOR`` still raises."""
     tsys, tspace = case["tsys"], case["tspace"]
-    with pytest.raises(NotImplementedError, match="mid-size species"):
-        TW.build_pnp_system(tsys, tspace, species_inv_threshold=20000,
-                            device="cpu", **RAS)
+    mid = TW.build_pnp_system(tsys, tspace, species_inv_threshold=20000,
+                              pb_field=case["t_mid"].pb, device="cpu", **RAS)
+    assert (mid.factor_kind, mid.poisson_tier) == ("ras", "inverse")
+    ts = _t(case["presolved"])
+    kind, X = factor = mid.species_factor(ts[0])
+    assert kind == "inv" and tuple(X.shape) == (2, 488, 488)
+    cp, cm, k = mid.species_step_reuse(factor, *ts)
+    want_cp, want_cm, _ = case["t_mid"].species_step(*ts)
+    assert 0 < k <= 8
+    assert slack(cp, want_cp) <= STAGE_SLACK
+    assert slack(cm, want_cm) <= STAGE_SLACK
     import dataclasses
     amg = dataclasses.replace(tsys, linearSolver="CG_AMG_SSOR")
     with pytest.raises(NotImplementedError, match="AMG"):

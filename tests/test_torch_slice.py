@@ -143,15 +143,22 @@ def test_non_finite_guard(runs, monkeypatch):
 def test_unported_tiers_raise():
     """Above the dense threshold the block-RAS tier builds, and a tableau
     whose stage diagonals differ takes the species Krylov path; the
-    options that are still unported raise, naming their ROADMAP item."""
+    mid-size species tier builds where ``species_inv_threshold`` admits
+    the mesh; the option that is still unported raises, naming its
+    ROADMAP item."""
     tsys, tspace = problems.pore_case(30, 17)
     system = TW.build_pnp_system(tsys, tspace, dense_poisson_threshold=100,
                                  device="cpu")
     assert (system.factor_kind, system.poisson_tier) == ("ras", "inverse")
     assert system.block_context.K == 2
-    with pytest.raises(NotImplementedError, match="mid-size species"):
-        TW.build_pnp_system(tsys, tspace, dense_poisson_threshold=100,
-                            species_inv_threshold=1000, device="cpu")
+    mid = TW.build_pnp_system(tsys, tspace, dense_poisson_threshold=100,
+                              species_inv_threshold=1000, pb_field=system.pb,
+                              device="cpu")
+    assert (mid.factor_kind, mid.poisson_tier) == ("ras", "inverse")
+    uphi, _ = mid.poisson_solve(mid.uphi0, mid.ucp0, mid.ucm0)
+    kind, X = mid.species_factor(uphi)
+    assert kind == "inv" and tuple(X.shape) == (2, 488, 488)
+    assert X.dtype == torch.float32
     with pytest.raises(NotImplementedError, match="Multi-device"):
         TW.build_pnp_system(tsys, tspace, device_mesh=object(), device="cpu")
     skewed = Tableau("skewed", A=np.array([[-1.0, 1.0, 0.0],

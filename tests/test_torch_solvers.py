@@ -199,8 +199,14 @@ def test_direct_pieces():
     with pytest.raises(FloatingPointError):
         TD.batched_inv_f32(singular)
     assert TD.probe_failures["count"] == n0 + 1
-    with pytest.raises(NotImplementedError):
-        TD.scaled_inv_apply((X, X[:, 0]), torch.zeros(2, N))
+    # the scaled (X_eq, s) form: d = S (X_eq (S r)), held to the reference
+    s = X[0, 0].abs() + 0.5
+    r = torch.linspace(-1.0, 1.0, N, dtype=torch.float64)[None]
+    got = TD.scaled_inv_apply((X[:1], s), r)
+    want = JD.scaled_inv_apply((jnp.asarray(X[:1].numpy()),
+                                jnp.asarray(s.numpy())),
+                               jnp.asarray(r.numpy()))
+    close(got, want, rtol=1e-6)
 
 
 def test_inverse_refinement_matches_reference():

@@ -286,17 +286,21 @@ def test_run_loop_takes_the_krylov_path(case, tmp_path):
 
 
 def test_gates_that_stay_closed(case):
-    """Not ported: ``CG_AMG_SSOR``, the mid-size species inverse tier, a
-    device mesh. An unknown variant is a ValueError, as in the reference."""
+    """Not ported: ``CG_AMG_SSOR`` and a device mesh. The mid-size species
+    inverse tier is a block-RAS option: with another solver variant it
+    changes nothing, as in the reference. An unknown variant is a
+    ValueError, as in the reference."""
     tsys, tspace = case["tsys"], case["tspace"]
     pb = interop.field(case["pb"])
     with pytest.raises(NotImplementedError):
         TW.build_pnp_system(dataclasses.replace(tsys,
                                                 linearSolver="CG_AMG_SSOR"),
                             tspace, pb_field=pb, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TW.build_pnp_system(tsys, tspace, pb_field=pb,
-                            species_inv_threshold=1000, device="cpu")
+    jacobi = dataclasses.replace(tsys, linearSolver="BCGS_Jacobi")
+    system = TW.build_pnp_system(jacobi, tspace, pb_field=pb,
+                                 species_inv_threshold=1000,
+                                 dense_poisson_threshold=0, device="cpu")
+    assert system.factor_kind is None and system.species_factor is None
     with pytest.raises(NotImplementedError):
         TW.build_pnp_system(tsys, tspace, pb_field=pb, device_mesh=object(),
                             device="cpu")
