@@ -71,9 +71,29 @@ result line:
     ``equilibrate=False`` on the (1, 47745, 47745) equilibrated Poisson
     matrix assembled anew, against its plain version and beside
     ``torch.linalg.inv`` (one timed call of each: the kernel's time alone,
-    and its share of the run's Poisson setup). Its parity
+    and its share of the run's Poisson setup); ``[dist plan]``: the host
+    seconds of the owner-partitioned plan's loops on this mesh at K = 8.
+    Its parity
     (``[very-large parity]``): ``pore_case(30, 17)`` with the tier forced,
     CUDA against CPU to 1e-9;
+10b. the owner-partitioned driver, K = 8 shards as a batch axis on the
+    card (``[dist main]``): ``run_distributed_pnp_from_pb`` on
+    ``pore_case(160, 88)`` with its own distributed phase A (kernel 2 at E
+    = K B_E = 23,552, kernel 1 at (8, L, L) per Newton assembly, L =
+    1,685), two-level Schwarz Poisson, 8 presolved steps with the species
+    factor (kernel 1 at (16, L, L)) refreshed every 4, every launch
+    counted; held against phase 8's single-device run (PB field to 1e-8,
+    fields and currents to 2e-4 of max + 1). ``[dist parity]``: the same
+    driver on the card against the CPU to 1e-9 on ``one_wall_case(40,
+    4)`` (4 steps) and ``pore_case(30, 17)`` (3 presolved steps, PB field
+    given). ``[dist kernels]``: kernel 1 at (16, L, L) and (8, L, L) on
+    that run's Schwarz batches (equal pivot rows, 1e-4, beside
+    ``torch.linalg.inv``), kernel 2 at E = 23,552 on its partitioned
+    tables. ``[dist trace]``: a profiler trace of one reuse step
+    (``chip_smoke_out/dist/trace_reuse/``). ``[P2]``: the production
+    driver at P2 on the dense tier (``one_wall_case(64, 10)``, 2,709
+    dofs), 3 presolved steps on the card against the CPU to 1e-9, kernel 2
+    at n = 6 at that run's E;
 12. the mid-size species tier (``[mid-species main]``): ``pore_case(160,
     88)`` with ``species_inv_threshold=16384``, 8 presolved steps, a
     refresh every 4 (kernel 1 at (2, 12097, 12097) each refresh): factor
@@ -93,7 +113,9 @@ result line:
     production workload on the block-RAS tier; the pore case's raw biased
     start diverges and the command line has no presolve switch), 4 steps
     on the card and with ``--device cpu``, their checkpoints against each
-    other and against the library call, to 1e-9.
+    other and against the library call, to 1e-9; ``CG_AMG_SSOR`` (CG under
+    the two-level aggregation AMG): the diffusion solve and ``solve_pb`` on
+    the one-wall case, on the card against the CPU to 1e-9.
 
 The next-to-last line is ``{"kernels": [...]}``: per kernel its launches
 in phase 6 (in phase 8 as ``launches_block_ras``, in phase 8b as
@@ -107,15 +129,18 @@ the same keys for the block-RAS run's shapes under ``block_ras_shape``,
 under ``poisson_large_shape``, ``very_large_species_shape``,
 ``very_large_pb_shape`` and (kernel 2) ``very_large_shape``, for the
 mid-size species tier's under ``mid_species_shape`` and the one-wall
-workloads' under ``workloads_shape``; ``launches_very_large``,
-``launches_mid_species`` and ``launches_workloads`` count those paths'
-runs. The last line is ``{"ok": true, "device": {...}}``.
+workloads' under ``workloads_shape``, for the distributed run's under
+``dist_species_shape``, ``dist_pb_shape`` and (kernel 2) ``dist_shape``,
+the P2 run's (kernel 2) under ``p2_shape``; ``launches_very_large``,
+``launches_mid_species``, ``launches_workloads``, ``launches_dist`` and
+``launches_p2`` count those paths' runs. The last line is ``{"ok": true, "device": {...}}``.
 Needs a CUDA device and ``nvcc``; writes the runs' outputs under
 ``chip_smoke_out/`` (gitignored).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -175,6 +200,20 @@ PB_REL_TOL = 1e-12
 # the slice on the card against the CPU: index_add_ on CUDA sums with
 # atomics in a varying order, and cuBLAS/the kernels sum in another order
 SLICE_REL_TOL = 1e-9
+# the owner-partitioned driver: K shards on the card, RAS_CASE at full
+# size (B_N 1,578, B_H 107: L = 1,685), two-level Schwarz Poisson
+DIST_K = 8
+DIST_STEPS = 8
+# the distributed run against phase 8's single-device block-RAS run of the
+# same case: fields and currents within 2e-4 of max + 1, the reference's
+# own stage-slack bound between its distributed and single-chip drivers
+# (tests/test_dist_driver.py:139-149); the PB fields of the two phase A's
+# (each Newton to newtonReduction 1e-9) to 1e-8 relative
+DIST_SLACK = 2e-4
+DIST_PB_TOL = 1e-8
+# the P2 production run on the dense tier (2,709 dofs, 1,280 triangles)
+P2_CASE = (64, 10)
+P2_STEPS = 3
 
 
 class PhaseError(RuntimeError):
@@ -326,15 +365,19 @@ def pb_check(torch, K, args, E_want: int) -> dict:
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
 
-    def traced():
+    def traced(order):
         """Device ms a launch by instance (0: the empty kernel), from one
-        profiler trace, and the trace's keys."""
+        profiler trace of the variants in ``order``, and the trace's
+        keys."""
         with torch.profiler.profile(activities=acts) as prof:
             # the tracer can lose the kernels launched while it still asks
-            # for its first activity buffer: one launch and a sync first
+            # for its first activity buffer: one launch of each instance
+            # and a sync first (a launch it keeps counts like the others)
             empty()
+            for name in order:
+                plan(ue, name)
             torch.cuda.synchronize()
-            for name in PB_VARIANTS:
+            for name in order:
                 for _ in range(20):
                     plan(ue, name)
                 torch.cuda.synchronize()
@@ -351,14 +394,19 @@ def pb_check(torch, K, args, E_want: int) -> dict:
                     e.self_device_time_total / e.count / 1e3)
         return device, sorted(e.key[:60] for e in prof.key_averages())
 
-    # a trace that lost an instance's events (seen once in ten runs: two of
-    # the four missing) is taken again; the kernels ran and were checked above
+    # a trace that lost an instance's events (seen in one run of ten, and
+    # in three traces in a row of one run: the first variant's) is taken
+    # again with the variants in another order, keeping what each trace
+    # saw; the kernels ran and were checked above
+    device, names = {}, list(PB_VARIANTS)
     for attempt in range(3):
-        device, keys = traced()
+        seen, keys = traced(names[attempt:] + names[:attempt])
+        for code, ms in seen.items():
+            device.setdefault(code, ms)
         if set(device) == {0, 1, 2, 3}:
             break
         print(f"[kernel pb_residual_jacobian] E={E}: profiler trace "
-              f"{attempt + 1} lacks instances, has {sorted(device)}",
+              f"{attempt + 1} lacks instances, has {sorted(seen)}",
               flush=True)
     check(set(device) == {0, 1, 2, 3}, "kernel 2's instances not found in "
           f"three profiler traces: {keys}")
@@ -790,6 +838,269 @@ def ras_breakdown(torch, W, PhaseTimer, maybe_trace, res, dev) -> None:
     check(tier_err <= TIER_REL_TOL, "Poisson tiers disagree")
 
 
+def pivot_rows_equal(torch, K, A) -> bool:
+    """Kernel 1 and its plain version pick the same pivot rows on the
+    equilibrated batch that ``gj_inverse`` hands its core."""
+    s = torch.rsqrt(torch.clamp_min(
+        torch.diagonal(A, dim1=1, dim2=2).abs(), 1e-30))
+    W = A * s[:, :, None] * s[:, None, :]
+    _, perm = K._gj_core_cuda(W)
+    _, perm_p = K._gj_core_plain(W)
+    return bool((perm.long() == perm_p).all())
+
+
+def scaled_err(a, b) -> float:
+    """max |a - b| / (max |b| + 1), the reference's cross-driver measure."""
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / (np.abs(b).max() + 1.0))
+
+
+def dist_fields_err(a, b, measure) -> float:
+    """Largest ``measure`` over (phi, cp, cm) and the currents of two runs
+    (either may be distributed: global numpy or device tensors)."""
+    import numpy as np
+
+    host = lambda v: v.cpu().numpy() if hasattr(v, "cpu") else np.asarray(v)
+    errs = [measure(host(getattr(a, n)), host(getattr(b, n)))
+            for n in ("phi", "cp", "cm")]
+    errs += [measure(host(x), host(y))
+             for (_, *xs), (_, *ys) in zip(a.current_history,
+                                           b.current_history)
+             for x, y in zip(xs, ys)]
+    return max(errs)
+
+
+def dist_main(torch, K, TD, direct, pore_case, ras_res, dev):
+    """``[dist main]``: the owner-partitioned driver at full size, K =
+    DIST_K shards on the card: distributed phase A (kernel 2 at E = K B_E,
+    kernel 1 at (K, L, L) per Newton assembly), two-level Schwarz Poisson
+    (kernel 1 at (K, L, L) once), presolved, DIST_STEPS steps with the
+    species factor (kernel 1 at (2K, L, L)) refreshed every RAS_REFRESH;
+    held against phase 8's single-device run (``ras_res``). Returns the
+    run's result and its launch counts."""
+    nodes, tris = RAS_SHAPE[:2]
+    sys_r, space_r = pore_case(*RAS_CASE)
+    out_dir = os.path.join(REPO, "chip_smoke_out", "dist")
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on: the Schwarz matvecs must run in IEEE f32")
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_launch_counts()
+    direct.probe_failures["count"] = 0
+    res = TD.run_distributed_pnp_from_pb(
+        sys_r, space_r, DIST_K, n_steps=DIST_STEPS, output_dir=out_dir,
+        presolve_potential=True, ras_refresh_every=RAS_REFRESH, device=dev)
+    counts = dict(K.launches)
+    failures = direct.probe_failures["count"]
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    system = res.system
+    plan = system.ctx.plan
+    L = plan.B_N + plan.B_H
+    print(f"[dist main] pore_case{RAS_CASE}: {nodes} dofs, {tris} "
+          f"triangles, K {DIST_K} shards on one card: B_E {plan.B_E} B_N "
+          f"{plan.B_N} B_H {plan.B_H} L {L} H_pair {plan.H_pair}; Poisson "
+          f"tier {system.poisson_tier}")
+    print(f"[dist main] phase A {res.pb_seconds:.3f} s "
+          f"({res.pb_newton_iterations} Newton iterations, "
+          f"{res.pb_jacobian_builds} Jacobian builds), setup (A-C and the "
+          f"presolve) {res.setup_seconds:.3f} s, Poisson setup (local "
+          f"inverses + the 3K-column coarse level) "
+          f"{1e3 * res.poisson_setup_seconds:.1f} ms")
+    for i, (ms, ks, kp, fresh) in enumerate(zip(
+            res.step_ms, res.species_iterations, res.poisson_iterations,
+            res.factor_rebuilt)):
+        print(f"[dist main] step {i} {'factor' if fresh else 'reuse'} "
+              f"{ms:.2f} ms, species BiCGSTAB its {ks}, Poisson BiCGSTAB "
+              f"its {kp}")
+    fa = [t for t, f in zip(res.step_ms, res.factor_rebuilt) if f]
+    re_ = [t for t, f in zip(res.step_ms, res.factor_rebuilt) if not f]
+    mean = lambda xs: sum(xs) / len(xs)
+    print(f"[dist main] factor step mean {mean(fa):.2f} ms, reuse step mean "
+          f"{mean(re_):.2f} ms; phase 8 (one device, block-RAS): factor "
+          f"{mean([t for t, f in zip(ras_res.step_ms, ras_res.factor_rebuilt) if f]):.2f}"
+          f" ms, reuse "
+          f"{mean([t for t, f in zip(ras_res.step_ms, ras_res.factor_rebuilt) if not f]):.2f}"
+          f" ms; launches {counts}, probe failures {failures}, peak memory "
+          f"{peak:.2f} GiB", flush=True)
+    check(system.poisson_tier == "two_level", "two-level Schwarz not taken")
+    check(failures == 0, f"{failures} contraction-probe failures")
+    check(res.factor_rebuilt == [i % RAS_REFRESH == 0
+                                 for i in range(DIST_STEPS)],
+          f"factor refresh schedule {res.factor_rebuilt}")
+    check(all(v.shape == (nodes,) and bool(torch.isfinite(
+        torch.from_numpy(v)).all()) for v in (res.phi, res.cp, res.cm)),
+          "non-finite or misshapen final state")
+    with open(os.path.join(out_dir, "current.dat")) as f:
+        rows = [line.split() for line in f if line.strip()]
+    check(len(rows) == DIST_STEPS and all(
+        len(r) == 1 + 2 * sys_r.n_surfaces for r in rows), "current.dat rows")
+    # kernel 1: one launch a PB Jacobian build, one for the Poisson local
+    # inverses, one a species refresh
+    want = res.pb_jacobian_builds + 1 + DIST_STEPS // RAS_REFRESH
+    check(counts["gj_inverse"] == want, f"gj_inverse launched "
+          f"{counts['gj_inverse']} times, not {want}")
+    for name, n in counts.items():
+        check(n > 0, f"kernel {name} was not launched on the distributed "
+              "path")
+    pb_err = rel_err(torch.from_numpy(system.to_global(system.pb)),
+                     ras_res.system.pb.cpu())
+    slack = dist_fields_err(res, ras_res, scaled_err)
+    print(f"[dist main] against phase 8's single-device run: PB field rel "
+          f"err {pb_err:.3e} (tol {DIST_PB_TOL:g}); fields and currents "
+          f"{slack:.3e} of max + 1 (tol {DIST_SLACK:g})", flush=True)
+    check(pb_err <= DIST_PB_TOL, "distributed PB field")
+    check(slack <= DIST_SLACK, "distributed run against the single-device "
+          "run")
+    return res, counts
+
+
+def dist_parity(torch, TD, problems, solve_pb, pore_case, dev) -> None:
+    """``[dist parity]``: the distributed driver on the card against
+    ``device="cpu"``, K = DIST_K: the one-wall case (4 steps, its own
+    phase A) and the pore case (presolved, 3 steps, the PB field given)."""
+    sys_w, space_w = problems.one_wall_case(40, 4)
+    sys_s, space_s = pore_case(30, 17)
+    pb = solve_pb(sys_s, space_s, device="cpu").u.numpy()
+    for label, run in (
+            ("one_wall_case(40, 4), 4 steps", lambda d: (
+                TD.run_distributed_pnp_from_pb(sys_w, space_w, DIST_K,
+                                               n_steps=4, device=d))),
+            ("pore_case(30, 17), 3 presolved steps, PB field given",
+             lambda d: TD.run_distributed_pnp_from_pb(
+                 sys_s, space_s, DIST_K, n_steps=3, presolve_potential=True,
+                 pb_field=pb, device=d))):
+        g, c = run(dev), run("cpu")
+        err = dist_fields_err(g, c, lambda a, b: rel_err(
+            torch.from_numpy(a), torch.from_numpy(b)))
+        print(f"[dist parity] {label}, K {DIST_K}, CUDA vs CPU: rel err "
+              f"fields and currents {err:.3e} (tol {SLICE_REL_TOL:g}); "
+              f"species its cuda {g.species_iterations} cpu "
+              f"{c.species_iterations}, Poisson its cuda "
+              f"{g.poisson_iterations} cpu {c.poisson_iterations}",
+              flush=True)
+        check(err <= SLICE_REL_TOL, f"dist parity, {label}")
+
+
+def dist_kernels(torch, K, SW, direct, res) -> dict:
+    """``[dist kernels]``: both kernels at the shapes the distributed run
+    gave them, on inputs built from its system: kernel 1 on the (2K, L,
+    L) species Schwarz batch at the presolved potential and on the (K, L,
+    L) Schwarz batch of phase A's PB Jacobian at the PB field (against the
+    plain version, equal pivot rows, beside ``torch.linalg.inv``), kernel
+    2 at E = K B_E."""
+    system = res.system
+    ctx = system.ctx
+    sys_r = system.sys
+    L = ctx.plan.B_N + ctx.plan.B_H
+    uphi, _ = system.poisson_solve(system.uphi0, system.uc0)
+    A = system.species_local_f32(uphi).reshape(2 * ctx.K, L, L)
+    same = pivot_rows_equal(torch, K, A)
+    print(f"[dist kernels] species Schwarz batch ({2 * ctx.K}, {L}, {L}): "
+          f"pivot rows equal the plain version's {same}")
+    check(same, "kernel 1's pivots on the species Schwarz batch")
+    gj_sp = gj_shape_check(torch, K, direct.contraction_ok, A,
+                           "dist species Schwarz batch", 5, 3)
+    del A
+    vt = system.vt_phi
+    args = (ctx.gather_elem(system.pb), vt.shape, vt.gradphi, vt.qw, vt.qy,
+            sys_r.l_b, sys_r.c0, sys_r.cylindrical, sys_r.pi)
+    _, J_el = K.pb_residual_jacobian_plain(*args, outputs="jacobian")
+    A = SW.build_local_matrices(ctx, J_el, system.free_phi).to(torch.float32)
+    check(tuple(A.shape) == (ctx.K, L, L), f"PB Schwarz batch {A.shape}")
+    same = pivot_rows_equal(torch, K, A)
+    print(f"[dist kernels] PB Jacobian Schwarz batch ({ctx.K}, {L}, {L}): "
+          f"pivot rows equal the plain version's {same}")
+    check(same, "kernel 1's pivots on the PB Schwarz batch")
+    gj_pb = gj_shape_check(torch, K, direct.contraction_ok, A,
+                           "dist PB Jacobian Schwarz batch", 5, 3)
+    del A, J_el
+    pb = pb_check(torch, K, args, ctx.E_flat)
+    return {"gj_species": gj_sp, "gj_pb": gj_pb, "pb": pb}
+
+
+def dist_trace(torch, maybe_trace, res, dev) -> None:
+    """``[dist trace]``: a ``torch.profiler`` trace of one reuse step of
+    the distributed driver on its final state (species stages on a
+    species factor built before the trace, then the Poisson re-solve)."""
+    system = res.system
+    ctx = system.ctx
+    put = lambda v: torch.from_numpy(ctx.partition(v)).to(dev)
+    uphi, uc = put(res.phi), torch.stack([put(res.cp), put(res.cm)])
+    factor = system.species_factor(uphi)
+    system.species_step_reuse(factor, uphi, uc)
+    with maybe_trace(os.path.join(REPO, "chip_smoke_out", "dist",
+                                  "trace_reuse")) as prof:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        uc2, k = system.species_step_reuse(factor, uphi, uc)
+        _, kp = system.poisson_solve(uphi, uc2)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    trace_summary(torch, prof, wall, f"reuse ({k} species its, {kp} Poisson "
+                  "its)", tag="dist trace")
+
+
+def dist_plan_timing(space) -> None:
+    """``[dist plan]``: host seconds of the owner-partitioned plan's
+    Python loops (copied from the reference as they are) at DIST_K shards:
+    the Morton element order, the halo plan, the env-element maps."""
+    import numpy as np
+
+    from pnp_tpu_torch.parallel import dist as D
+    from pnp_tpu_torch.parallel.halo import build_halo_plan
+
+    dm = np.asarray(space.dofmap)
+    t0 = time.perf_counter()
+    perm = D.locality_element_order(space.mesh)
+    t1 = time.perf_counter()
+    plan = build_halo_plan(dm, space.ndof, DIST_K, element_perm=perm)
+    t2 = time.perf_counter()
+    env_ids, _ = D._build_env_maps(plan, dm)
+    t3 = time.perf_counter()
+    print(f"[dist plan] {space.ndof} dofs, {space.mesh.num_tris} triangles, "
+          f"K {DIST_K}: L {plan.B_N + plan.B_H} H_pair {plan.H_pair} B_E2 "
+          f"{env_ids.shape[1]}; host seconds: element order {t1 - t0:.3f}, "
+          f"halo plan {t2 - t1:.3f}, env maps {t3 - t2:.3f}", flush=True)
+
+
+def p2_phase(torch, K, W, problems, make_scalar_context, dev):
+    """The production driver at P2 on the dense tier (the general stage
+    matrix: element blocks assembled densely), P2_STEPS presolved steps on
+    the card against the CPU, then kernel 2 at n = 6 at this run's E
+    against its plain version. Returns kernel 2's entry and the card
+    run's launch counts."""
+    sys_p, space_p = problems.one_wall_case(*P2_CASE, degree=2)
+    K.reset_launch_counts()
+    run = lambda d: W.run_instationary_pnp_from_pb(
+        sys_p, space_p, n_steps=P2_STEPS, presolve_potential=True, device=d)
+    g = run(dev)
+    counts = dict(K.launches)
+    c = run("cpu")
+    err, cur = fields_rel(torch, g, c)
+    print(f"[P2] one_wall_case{P2_CASE} at P2: {space_p.ndof} dofs, "
+          f"{space_p.mesh.num_tris} triangles; tiers "
+          f"({g.system.factor_kind}, {g.system.poisson_tier}); "
+          f"{P2_STEPS} presolved steps, CUDA vs CPU: rel err fields "
+          f"{err:.3e} currents {cur:.3e} (tol {SLICE_REL_TOL:g}); step ms "
+          + " ".join(f"{t:.2f}" for t in g.step_ms)
+          + f"; launches {counts}", flush=True)
+    check((g.system.factor_kind, g.system.poisson_tier) == ("dense", "dense"),
+          "P2: the dense tier not taken")
+    check(max(err, cur) <= SLICE_REL_TOL, "P2 run, CUDA vs CPU")
+    for name, n in counts.items():
+        check(n > 0, f"kernel {name} was not launched on the P2 run")
+    ctx = make_scalar_context(sys_p, space_p, component=0, quad_order=3,
+                              device=dev)
+    vt = ctx.vt
+    check(vt.dofmap.shape[1] == 6, "P2 element dofs")
+    entry = pb_check(torch, K, (g.system.pb[vt.dofmap], vt.shape, vt.gradphi,
+                                vt.qw, vt.qy, sys_p.l_b, sys_p.c0,
+                                sys_p.cylindrical, sys_p.pi),
+                     space_p.mesh.num_tris)
+    return entry, counts
+
+
 def fields_rel(torch, a, b):
     """Largest relative error over (phi, cp, cm) and the currents of two
     runs of the production workload."""
@@ -1087,6 +1398,27 @@ def workloads_phase(torch, K, W, make_scalar_context, pore_case, dev):
         check(ug.is_cuda and rg.converged and rc.converged
               and err <= SLICE_REL_TOL, f"stationary_diffusion, {label}")
 
+    # CG under the two-level aggregation AMG: the diffusion solve and the
+    # PB Newton on the one-wall case
+    amg_w = dataclasses.replace(sys_w, linearSolver="CG_AMG_SSOR")
+    (ug, rg), (uc, rc), ms = both(lambda d: run_stationary_diffusion(
+        amg_w, space_w, DIFFUSION_REDUCTION, device=d))
+    err = rel_err(ug.cpu(), uc)
+    print(f"[workloads] stationary_diffusion CG_AMG_SSOR, {wall}, "
+          f"{space_w.ndof} dofs: {ms:.1f} ms on the card, CG {rg.iterations}"
+          f" its (cpu {rc.iterations}), CUDA vs CPU rel err {err:.3e} (tol "
+          f"{SLICE_REL_TOL:g})", flush=True)
+    check(ug.is_cuda and rg.converged and rc.converged
+          and err <= SLICE_REL_TOL, "stationary_diffusion CG_AMG_SSOR")
+    g, c, ms = both(lambda d: solve_pb(amg_w, space_w, device=d))
+    err = rel_err(g.u.cpu(), c.u)
+    print(f"[workloads] solve_pb CG_AMG_SSOR, {wall}: {ms:.1f} ms on the "
+          f"card, Newton {g.iterations} its (cpu {c.iterations}), CG "
+          f"{g.linear_iterations} (cpu {c.linear_iterations}), CUDA vs CPU "
+          f"rel err {err:.3e} (tol {SLICE_REL_TOL:g})", flush=True)
+    check(g.converged and c.converged and err <= SLICE_REL_TOL,
+          "solve_pb CG_AMG_SSOR")
+
     # the monolithic Newton solve on the one-wall case only: on the pore
     # case its Jacobi-preconditioned BiCGSTAB runs to its iteration cap
     before = K.launches["pb_residual_jacobian"]
@@ -1208,6 +1540,10 @@ def main() -> int:
         from pnp_tpu_torch.utils.profiling import PhaseTimer, maybe_trace
         from pnp_tpu_torch.workloads.common import make_scalar_context
         from pnp_tpu_torch.workloads import instationary_pnp_from_pb as W
+        from pnp_tpu_torch import problems
+        from pnp_tpu_torch.solvers import schwarz as SW
+        from pnp_tpu_torch.workloads import distributed_pnp as TD
+        from pnp_tpu_torch.workloads.pb import solve_pb
     except ImportError as e:
         print(f"chip_smoke: cannot import the port ({e}); run it from the "
               "repository root", file=sys.stderr)
@@ -1330,6 +1666,18 @@ def main() -> int:
     print(f"[block-RAS tier done] {time.perf_counter() - t_all:.1f} s",
           flush=True)
 
+    # ---- the owner-partitioned driver, K shards on the card ---------------
+    dist_res, dist_counts = dist_main(torch, K, TD, direct, pore_case,
+                                      ras_res, dev)
+    dist_parity(torch, TD, problems, solve_pb, pore_case, dev)
+    dist_k = dist_kernels(torch, K, SW, direct, dist_res)
+    dist_trace(torch, maybe_trace, dist_res, dev)
+    del dist_res
+    p2_k, p2_counts = p2_phase(torch, K, W, problems, make_scalar_context,
+                               dev)
+    print(f"[distributed and P2 done] {time.perf_counter() - t_all:.1f} s",
+          flush=True)
+
     # ---- 11-13. the inverse tiers above it, the other workloads -----------
     mid_k, mid_counts = mid_species_main(torch, K, W, direct, pore_case,
                                          ras_res, dev)
@@ -1337,6 +1685,7 @@ def main() -> int:
     very_large_parity(torch, W, pore_case, dev)
     large_k, large_shapes, large_counts = very_large_main(
         torch, K, W, direct, FA, V, BR, make_scalar_context, pore_case, dev)
+    dist_plan_timing(pore_case(*LARGE_CASE)[1])
     print(f"[inverse tiers done] {time.perf_counter() - t_all:.1f} s",
           flush=True)
     work_k, work_counts = workloads_phase(torch, K, W, make_scalar_context,
@@ -1365,7 +1714,11 @@ def main() -> int:
          "poisson_large_shape": large_k,
          "very_large_species_shape": large_shapes["gj"],
          "very_large_pb_shape": large_shapes["gj_pb"],
-         "mid_species_shape": mid_k},
+         "mid_species_shape": mid_k,
+         "launches_dist": dist_counts["gj_inverse"],
+         "dist_species_shape": dist_k["gj_species"],
+         "dist_pb_shape": dist_k["gj_pb"],
+         "launches_p2": p2_counts["gj_inverse"]},
         {"name": "pb_residual_jacobian", "route": "cuda",
          "source": "pnp_tpu_torch/csrc/pb_element.cu",
          "replaces": "pnp_tpu/operators/pallas_kernels.py:105",
@@ -1378,7 +1731,11 @@ def main() -> int:
          "launches_workloads": work_counts["pb_residual_jacobian"],
          "block_ras_shape": ras_k["pb"],
          "very_large_shape": large_shapes["pb"],
-         "workloads_shape": work_k},
+         "workloads_shape": work_k,
+         "launches_dist": dist_counts["pb_residual_jacobian"],
+         "dist_shape": dist_k["pb"],
+         "launches_p2": p2_counts["pb_residual_jacobian"],
+         "p2_shape": p2_k},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,9 @@ Parity: reference ``bin/dune_pnp.py`` (:1-43): selects the linear-solver
 variant (-s), polynomial degree (-p) and parallel width (-n), then runs a
 config. There the choice picked a pre-compiled binary
 (``dune_pnp_<SOLVER>_<P>``) and an ``mpirun -np N`` launch; here the same
-flags are runtime config. ``-n`` above 1 is the multi-device workload, which
-is not ported yet (ROADMAP, "Multi-device").
+flags are runtime config. ``-n K`` above 1 runs the production workload on
+the owner-partitioned driver with K shards on the chosen device
+(:func:`.workloads.distributed_pnp.run_distributed_pnp_from_pb`).
 
 Extra flags expose the additional capability surface (workload selection,
 output dir, checkpointing, profiling), and ``--device`` chooses where the
@@ -42,7 +43,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-p", "--degree", type=int, choices=(1, 2, 3), default=None,
                    help="polynomial degree (default: config/1)")
     p.add_argument("-n", "--num-devices", type=int, default=1,
-                   help="devices to shard mesh elements over")
+                   help="shards to partition the mesh over (the production "
+                        "workload; all on the chosen device)")
     p.add_argument("-w", "--workload", choices=WORKLOADS,
                    default="instationary_pnp_from_pb")
     p.add_argument("-o", "--output-dir", default=None)
@@ -66,10 +68,8 @@ def main(argv=None) -> int:
         sys_cfg.linearSolver = args.solver
     if args.degree:
         sys_cfg.degree = args.degree
-    if args.num_devices > 1:
-        raise NotImplementedError(
-            "-n > 1: multi-device runs are not ported yet "
-            "(ROADMAP: modules to port, 'Multi-device')")
+    if args.num_devices < 1:
+        raise ValueError(f"-n must be at least 1, not {args.num_devices}")
 
     from .fem.space import FunctionSpace
     from .meshio import read_gmsh
@@ -118,6 +118,17 @@ def _run(args, sys_cfg, space, device, t0) -> None:
                                    device=device)
         print(f"[pnp_tpu_torch] explicit run: {res.steps} steps, "
               f"dt={res.dt:.3e}, t={res.time:.3e}")
+    elif args.num_devices > 1:
+        from .workloads.distributed_pnp import run_distributed_pnp_from_pb
+        res = run_distributed_pnp_from_pb(
+            sys_cfg, space, args.num_devices, n_steps=args.steps,
+            output_dir=args.output_dir, checkpoint_path=args.checkpoint,
+            checkpoint_freq=args.checkpoint_freq, resume=args.resume,
+            device=device)
+        dofs = 3 * space.ndof * res.steps
+        dt = time.perf_counter() - t0
+        print(f"[pnp_tpu_torch] {res.steps} steps on {res.n_shards} shards "
+              f"in {dt:.2f}s ({dofs / dt:,.0f} assembled-solved DOFs/s)")
     else:
         from .workloads.instationary_pnp_from_pb import \
             run_instationary_pnp_from_pb

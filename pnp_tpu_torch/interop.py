@@ -7,8 +7,10 @@ on identical inputs: meshes, spaces, tables, fields, and the block-RAS
 pieces (block context, RAS factors with their p1 coarse tables, the
 Poisson inverse of the mid-size and of the very-large tier, a species
 factor of either kind) so a solve can be compared with the preconditioner
-held equal, and the composite state of the monolithic workloads. Nothing here imports ``pnp_tpu`` or ``jax``;
-arrays pass through ``numpy.asarray``.
+held equal, the composite state of the monolithic workloads, and the
+multi-device pieces (a halo plan, an owner-partitioned state). Nothing
+here imports ``pnp_tpu`` or ``jax``; arrays pass through
+``numpy.asarray``.
 """
 
 from __future__ import annotations
@@ -125,3 +127,28 @@ def composite_state(u0, free, g, device="cpu"):
     return (f64(u0, device),
             torch.tensor(np.asarray(free, bool), device=device),
             f64(g, device))
+
+
+def halo_plan(src):
+    """``pnp_tpu.parallel.halo.HaloPlan`` -> the port's (numpy, the same
+    arrays and sizes)."""
+    from .parallel.halo import HaloPlan
+    return HaloPlan(**{
+        f.name: (int(getattr(src, f.name)) if f.type in ("int", int)
+                 else np.array(getattr(src, f.name)))
+        for f in dataclasses.fields(HaloPlan)})
+
+
+def dist_state(uphi, uc, src_plan, ctx):
+    """The reference's owner-partitioned state ``(uphi (Kb,), uc (2, Kb))``,
+    laid out by its plan ``src_plan``, -> the port's on ``ctx``
+    (a :class:`.parallel.dist.DistContext`): f64 tensors ``(uphi (Kb',),
+    uc (2, Kb'))`` on ``ctx.device``. The plans may differ (another shard
+    count): the state goes through its global form."""
+    from .parallel.halo import unpartition_vector
+    p = halo_plan(src_plan)
+    glob = lambda v: unpartition_vector(
+        p, np.asarray(v, np.float64).reshape(p.K, p.B_N))
+    uc = np.asarray(uc)
+    return (f64(ctx.partition(glob(uphi)), ctx.device),
+            f64(np.stack([ctx.partition(glob(c)) for c in uc]), ctx.device))

@@ -3,7 +3,8 @@
 
 ``make_krylov_solver`` maps the reference's compile-time linear-solver
 variants (src/instationary_pnp_from_pb_md.hh:20-32) to runtime-selected
-solvers. ``CG_AMG_SSOR`` is not ported yet (ROADMAP, "AMG").
+solvers; ``CG_AMG_SSOR`` is CG under the two-level aggregation AMG of
+:mod:`.amg`.
 """
 
 from __future__ import annotations
@@ -12,12 +13,14 @@ from typing import Callable
 
 import torch
 
+from .amg import two_level_precond
 from .krylov import cg, bicgstab
 from .precond import (jacobi_precond, chebyshev_jacobi_precond,
                       estimate_dinv_spectral_radius)
 
 
-def make_krylov_solver(name: str, maxiter: int, ssor_k: int = 3):
+def make_krylov_solver(name: str, maxiter: int, ssor_k: int = 3,
+                       amg_ctx=None):
     """Return ``solve(op, b, x0, diag, reduction, A_el=None, lam=None)``.
 
       BCGS_SSORk  -> BiCGSTAB + Chebyshev-Jacobi(k)
@@ -25,6 +28,9 @@ def make_krylov_solver(name: str, maxiter: int, ssor_k: int = 3):
       CG_NOPREC   -> CG
       CG_Jacobi   -> CG + Jacobi
       BCGS_Jacobi -> BiCGSTAB + Jacobi (rebuild-only variant)
+      CG_AMG_SSOR -> CG + two-level aggregation AMG (needs ``amg_ctx`` and
+                     the element Jacobian blocks ``A_el``; Chebyshev-Jacobi
+                     otherwise, as in the reference)
     """
     if name == "BCGS_NOPREC":
         def solve(op, b, x0, diag, reduction, A_el=None, lam=None):
@@ -47,8 +53,14 @@ def make_krylov_solver(name: str, maxiter: int, ssor_k: int = 3):
             M = chebyshev_jacobi_precond(op, diag, lam, degree=ssor_k)
             return bicgstab(op, b, x0, M, reduction, maxiter)
     elif name == "CG_AMG_SSOR":
-        raise NotImplementedError(
-            "CG_AMG_SSOR is not ported yet (ROADMAP: modules to port, 'AMG')")
+        def solve(op, b, x0, diag, reduction, A_el=None, lam=None):
+            if amg_ctx is not None and A_el is not None:
+                M = two_level_precond(A_el, amg_ctx, diag)
+            else:
+                if lam is None:
+                    lam = estimate_dinv_spectral_radius(op, diag, b + 1e-30)
+                M = chebyshev_jacobi_precond(op, diag, lam, degree=ssor_k)
+            return cg(op, b, x0, M, reduction, maxiter)
     else:
         raise ValueError(f"unknown linear solver variant '{name}'")
     return solve

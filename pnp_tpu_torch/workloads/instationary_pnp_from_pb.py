@@ -51,7 +51,11 @@ weight even in cylindrical runs (src/diffusion_operator.hh:100; PB and
 Poisson do carry it); quadrature orders 3 (PB/Poisson), 2 (species
 spatial), 5 (species mass); dt = tau.
 
-Not ported yet (ROADMAP): the multi-device mesh and ``CG_AMG_SSOR``.
+``CG_AMG_SSOR`` runs CG under two-level aggregation AMG above the dense
+tier (one aggregation for phi, one for the species pair). Not ported: the
+``device_mesh`` argument, the reference's element sharding by annotation;
+the owner-partitioned multi-device driver is
+:func:`..workloads.distributed_pnp.run_distributed_pnp_from_pb`.
 """
 
 from __future__ import annotations
@@ -76,6 +80,7 @@ from ..postprocess.ionflux import build_ionflux_tables, calc_ion_flux
 from ..io.writers import write_dat, write_vtu, CurrentWriter
 from ..io.checkpoint import save_checkpoint, load_checkpoint
 from ..solvers import block_ras as BR
+from ..solvers.amg import make_amg_context
 from ..solvers.direct import (batched_inv_f32, inv_f32_probe, inv_f32_setup,
                               inv_f32_setup_large, make_inv_refine_solver,
                               make_inv_refine_solver_arg)
@@ -220,8 +225,9 @@ def build_pnp_system(
     ndof = space.ndof
     if device_mesh is not None:
         raise NotImplementedError(
-            "multi-device runs are not ported yet "
-            "(ROADMAP: modules to port, 'Multi-device')")
+            "device_mesh (element sharding by annotation) is not ported; "
+            "the owner-partitioned multi-device driver is "
+            "workloads.distributed_pnp.run_distributed_pnp_from_pb")
     a_tab = [[float(v) for v in row] for row in tab.A]
     b_tab = [[float(v) for v in row] for row in tab.B]
     stages = tab.stages
@@ -230,7 +236,7 @@ def build_pnp_system(
     uniform_stage_diag = all(
         a_tab[i][i + 1] == a01 and b_tab[i][i + 1] == b01
         for i in range(stages))
-    # raises for CG_AMG_SSOR (not ported) and for an unknown variant
+    # raises for an unknown variant
     krylov = make_krylov_solver(sys.linearSolver, sys.linearSolverIterations)
     use_dense = ndof <= dense_poisson_threshold
     use_block_ras = not use_dense and sys.linearSolver == "BCGS_SSORk"
@@ -268,6 +274,21 @@ def build_pnp_system(
     vt2 = build_volume_tables(space, max(2, 2 * space.degree), device)
     vt5 = build_volume_tables(space, max(5, 2 * space.degree + 1), device)
     vt_phi = ctx_phi.vt
+
+    krylov_phi = krylov_sp = krylov
+    if sys.linearSolver == "CG_AMG_SSOR" and not use_dense:
+        # the AMG variant gets an aggregation on both Krylov paths, one for
+        # phi and one over the union of the species masks; the element
+        # blocks are passed at the call sites
+        coords = space.dof_coords
+        krylov_phi = make_krylov_solver(
+            sys.linearSolver, sys.linearSolverIterations,
+            amg_ctx=make_amg_context(vt_phi.dofmap, ndof, ctx_phi.free,
+                                     dof_coords=coords))
+        krylov_sp = make_krylov_solver(
+            sys.linearSolver, sys.linearSolverIterations,
+            amg_ctx=make_amg_context(vt2.dofmap, ndof, free_pair,
+                                     dof_coords=coords))
 
     M_el = V.mass_jacobian_el(vt5, 1.0, False, pi)   # planar (ref behaviour)
     A_phi_el = V.poisson_jacobian_el(vt_phi, sys.cylindrical, pi)
@@ -521,8 +542,8 @@ def build_pnp_system(
                 dg.index_add_(1, vt2.dofmap.reshape(-1), torch.diagonal(
                     A_el, dim1=-2, dim2=-1).reshape(2, -1))
                 dg = torch.where(free_pair, dg, 1.0)
-                res = krylov(op, r, torch.zeros_like(r), dg, stage_reduction,
-                             A_el=A_el, lam=lam_species)
+                res = krylov_sp(op, r, torch.zeros_like(r), dg,
+                                stage_reduction, A_el=A_el, lam=lam_species)
             levels.append(guess - res.x)
             iters += res.iterations
         return levels[-1], iters
@@ -595,8 +616,8 @@ def build_pnp_system(
             x, k = solve_phi_inv(pre, r[None], 1e-10)
             return uphi_ - x[0], k
         if poisson_tier == "krylov":
-            res = krylov(op_phi, r, torch.zeros_like(r), pre, 1e-10,
-                         A_el=A_phi_el, lam=lam_phi)
+            res = krylov_phi(op_phi, r, torch.zeros_like(r), pre, 1e-10,
+                             A_el=A_phi_el, lam=lam_phi)
             return uphi_ - res.x, res.iterations
         inv_p, p1_p = pre
         M = BR.make_two_level_precond(ctx_ras, inv_p, None, op_phi,

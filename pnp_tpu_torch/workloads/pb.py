@@ -24,6 +24,7 @@ from ..fem import assembly as A
 from ..fem.space import FunctionSpace
 from ..operators import kernels as K
 from ..solvers import block_ras as BR
+from ..solvers.amg import make_amg_context
 from ..solvers.krylov import bicgstab
 from ..solvers.newton import newton_solve, NewtonParams, NewtonResult
 from ..solvers.linear_problem import make_krylov_solver
@@ -58,7 +59,12 @@ def make_pb_assemble_solve(ctx: ScalarContext, ras_threshold: int = 8192,
     ``BCGS_SSORk``), the assembled diagonal below; ``solve(jac_ctx, r,
     red)`` runs BiCGSTAB + RAS or the configured Krylov variant."""
     sys = ctx.sys
-    krylov = make_krylov_solver(sys.linearSolver, sys.linearSolverIterations)
+    amg_ctx = None
+    if sys.linearSolver == "CG_AMG_SSOR":
+        amg_ctx = make_amg_context(ctx.dofmap, ctx.ndof, ctx.free,
+                                   dof_coords=ctx.space.dof_coords)
+    krylov = make_krylov_solver(sys.linearSolver, sys.linearSolverIterations,
+                                amg_ctx=amg_ctx)
     element = pb_element(ctx)
     ctx_ras = None
     if sys.linearSolver == "BCGS_SSORk" and ctx.ndof > ras_threshold:

@@ -23,6 +23,7 @@ from ..fem import assembly as FA
 from ..fem.space import FunctionSpace
 from ..io.writers import write_dat, write_vtu
 from ..operators import volume as V
+from ..solvers.amg import make_amg_context
 from ..solvers.linear_problem import make_krylov_solver
 from .common import make_scalar_context
 
@@ -39,8 +40,12 @@ def run_stationary_diffusion(sys: Sysparams, space: FunctionSpace,
     A_el = V.laplace_jacobian_el(ctx.vt)
     op = FA.make_constrained_operator(A_el, ctx.dofmap, ctx.ndof, ctx.free)
     diag = FA.constrained_diagonal(A_el, ctx.dofmap, ctx.ndof, ctx.free)
-    # raises for CG_AMG_SSOR (not ported: ROADMAP, "AMG")
-    krylov = make_krylov_solver(sys.linearSolver, sys.linearSolverIterations)
+    amg_ctx = None
+    if sys.linearSolver == "CG_AMG_SSOR":
+        amg_ctx = make_amg_context(ctx.dofmap, ctx.ndof, ctx.free,
+                                   dof_coords=space.dof_coords)
+    krylov = make_krylov_solver(sys.linearSolver, sys.linearSolverIterations,
+                                amg_ctx=amg_ctx)
 
     if sys.printStiffnessMatrix:
         # reference flag exists but its Dune::printmatrix call is commented

@@ -159,12 +159,30 @@ def test_checkpoint_resume_and_profile_flags(files, tmp_path):
     assert (prof / "trace.json").exists()
 
 
-def test_multi_device_flag_raises(files):
-    r = run_cli(["-n", "2", "--device", "cpu", files["cfg"]])
-    assert r.returncode != 0
-    assert "NotImplementedError" in r.stderr and "Multi-device" in r.stderr
-    with pytest.raises(NotImplementedError, match="Multi-device"):
-        main(["-n", "2", "--device", "cpu", files["cfg"]])
+def test_multi_device_flag_raises(files, tmp_path):
+    """``-n 2 --device cpu`` runs the production workload on the
+    owner-partitioned driver with 2 shards: its current.dat equals the
+    library call's (1e-12); ``-n 0`` is refused."""
+    from pnp_tpu_torch.fem.space import FunctionSpace
+    from pnp_tpu_torch.workloads.distributed_pnp import \
+        run_distributed_pnp_from_pb
+
+    out = tmp_path / "cli"
+    r = run_cli(["-n", "2", "--device", "cpu", "--steps", "2", "-o",
+                 str(out), files["cfg"]])
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "2 steps on 2 shards" in r.stdout
+    cfg = read_config(files["cfg"])
+    lib = run_distributed_pnp_from_pb(
+        cfg, FunctionSpace(read_gmsh(cfg.meshfile), cfg.degree), 2,
+        n_steps=2, output_dir=str(tmp_path / "lib"), device="cpu")
+    assert lib.n_shards == 2
+    got = np.loadtxt(out / "current.dat")
+    want = np.loadtxt(tmp_path / "lib" / "current.dat")
+    assert got.shape == want.shape == (2, 1 + 2 * cfg.n_surfaces)
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-15)
+    with pytest.raises(ValueError):
+        main(["-n", "0", "--device", "cpu", files["cfg"]])
 
 
 @pytest.mark.skipif(torch.cuda.is_available(),

@@ -393,3 +393,61 @@ def test_command_line_defaults_to_the_card(cuda, tmp_path):
     assert "device cuda" in r.stdout
     assert "assembled-solved DOFs/s" in r.stdout
     assert (tmp_path / "out" / "current.dat").exists()
+
+
+def test_gj_kernel_at_the_schwarz_shapes(cuda):
+    """Kernel 1 as the Schwarz local inverse: the (K, L, L) local matrices
+    of a pore case's Poisson operator at K = 8 through
+    ``schwarz.invert_local_matrices`` launch it once and agree with the
+    plain version within GJ_REL_TOL, with its pivot rows; the species
+    factor inverts the (2K, L, L) stage batch in one launch."""
+    from pnp_tpu_torch.operators import volume as V
+    from pnp_tpu_torch.solvers import schwarz as SW
+    from pnp_tpu_torch.workloads import distributed_pnp as TD
+
+    sys_, space = pore_case(60, 33)
+    system = TD.build_dist_pnp_system(sys_, space, 8, device=cuda)
+    ctx = system.ctx
+    L = ctx.plan.B_N + ctx.plan.B_H
+    ctx_phi = make_scalar_context(sys_, space, 0, 3, device="cpu")
+    free = torch.as_tensor(
+        ctx.partition(ctx_phi.free.numpy().astype(np.int8)).astype(bool)
+        & ctx.pad_mask_flat(), device=cuda)
+    A_phi = V.poisson_jacobian_el(TD.partition_volume_tables(ctx,
+                                                             ctx_phi.vt),
+                                  sys_.cylindrical, sys_.pi)
+    A_loc = SW.build_local_matrices(ctx, A_phi, free)
+    A = A_loc.to(torch.float32)
+    assert tuple(A.shape) == (8, L, L)
+    n0 = K.launches["gj_inverse"]
+    X = SW.invert_local_matrices(ctx, A_loc)
+    assert K.launches["gj_inverse"] == n0 + 1
+    Xp = K.gj_inverse_plain(A)
+    torch.testing.assert_close(X, Xp, rtol=0,
+                               atol=GJ_REL_TOL * float(Xp.abs().max()))
+    _, piv = K._gj_core_cuda(A)
+    _, piv_p = K._gj_core_plain(A)
+    assert torch.equal(piv.long(), piv_p)
+
+    uphi, _ = system.poisson_solve(system.uphi0, system.uc0)
+    n0 = K.launches["gj_inverse"]
+    inv = system.species_factor(uphi)
+    assert K.launches["gj_inverse"] == n0 + 1
+    assert tuple(inv.shape) == (2, 8, L, L) and inv.dtype == torch.float32
+
+
+def test_distributed_on_card_matches_cpu(cuda):
+    """The owner-partitioned driver at K = 8 on the card against the CPU,
+    2 steps of the one-wall case: fields to 1e-9 relative."""
+    from pnp_tpu_torch.problems import one_wall_case
+    from pnp_tpu_torch.workloads.distributed_pnp import \
+        run_distributed_pnp_from_pb
+
+    sys_, space = one_wall_case(40, 4)
+    K.reset_launch_counts()
+    a = run_distributed_pnp_from_pb(sys_, space, 8, n_steps=2, device=cuda)
+    assert min(K.launches.values()) > 0
+    b = run_distributed_pnp_from_pb(sys_, space, 8, n_steps=2, device="cpu")
+    for name in ("phi", "cp", "cm"):
+        x, y = getattr(a, name), getattr(b, name)
+        assert np.abs(x - y).max() <= 1e-9 * np.abs(y).max()

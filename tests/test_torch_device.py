@@ -9,6 +9,8 @@ import torch
 from pnp_tpu_torch.problems import one_wall_case, pore_case
 from pnp_tpu_torch.utils.device import resolve_device
 from pnp_tpu_torch.workloads.common import make_scalar_context
+from pnp_tpu_torch.workloads.distributed_pnp import (
+    build_dist_pnp_system, run_distributed_pnp_from_pb)
 from pnp_tpu_torch.workloads.instationary_pnp_from_pb import (
     build_pnp_system, run_instationary_pnp_from_pb)
 from pnp_tpu_torch.workloads.instationary_pnp import run_instationary_pnp
@@ -38,6 +40,12 @@ ENTRY_POINTS = {
     "run_instationary_pnp":
         lambda s, sp, **kw: run_instationary_pnp(*one_wall_case(10, 2),
                                                  n_steps=2, **kw),
+    # the owner-partitioned driver, 2 shards
+    "run_distributed_pnp_from_pb":
+        lambda s, sp, **kw: run_distributed_pnp_from_pb(s, sp, 2, n_steps=1,
+                                                        **kw),
+    "build_dist_pnp_system":
+        lambda s, sp, **kw: build_dist_pnp_system(s, sp, 2, **kw),
 }
 
 
@@ -63,7 +71,9 @@ def test_entry_point_runs_on_cpu_when_asked(no_cuda, name):
              "make_scalar_context": lambda r: r.dirichlet,
              "run_stationary_diffusion": lambda r: r[0],
              "run_stationary_pnp": lambda r: r.u,
-             "run_instationary_pnp": lambda r: r.phi}[name](out)
+             "run_instationary_pnp": lambda r: r.phi,
+             "run_distributed_pnp_from_pb": lambda r: r.system.uc0,
+             "build_dist_pnp_system": lambda r: r.pb}[name](out)
     assert field.device.type == "cpu" and bool(field.isfinite().all())
 
 

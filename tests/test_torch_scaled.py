@@ -289,7 +289,10 @@ def test_unported_options_raise(case):
     """``species_inv_threshold`` no longer raises: the mid-size species
     tier builds the stage inverses at a refresh and tags them
     (tests/test_torch_large_tiers.py holds the tier to the reference).
-    ``CG_AMG_SSOR`` still raises."""
+    ``CG_AMG_SSOR`` no longer raises: phase A's Newton runs CG under the
+    two-level AMG (the reference's Newton count, the PB field to 1e-10)
+    and the Poisson re-solve takes the Krylov tier with an aggregation of
+    its own (the reference's field to 1e-9)."""
     tsys, tspace = case["tsys"], case["tspace"]
     mid = TW.build_pnp_system(tsys, tspace, species_inv_threshold=20000,
                               pb_field=case["t_mid"].pb, device="cpu", **RAS)
@@ -304,8 +307,14 @@ def test_unported_options_raise(case):
     assert slack(cm, want_cm) <= STAGE_SLACK
     import dataclasses
     amg = dataclasses.replace(tsys, linearSolver="CG_AMG_SSOR")
-    with pytest.raises(NotImplementedError, match="AMG"):
-        TW.build_pnp_system(amg, tspace, **RAS, device="cpu")
+    t_amg = TW.build_pnp_system(amg, tspace, **RAS, device="cpu")
+    j_amg = JW.build_pnp_system(jax_sysparams(amg), case["jspace"], **RAS)
+    assert (t_amg.factor_kind, t_amg.poisson_tier) == (None, "krylov")
+    assert t_amg.pb_newton_iterations == int(j_amg.pb_newton_iterations) > 0
+    assert rel(t_amg.pb, j_amg.pb) <= 1e-10, rel(t_amg.pb, j_amg.pb)
+    tu, tk = t_amg.poisson_solve(t_amg.uphi0, t_amg.ucp0, t_amg.ucm0)
+    ju, jk = j_amg.poisson_solve(j_amg.uphi0, j_amg.ucp0, j_amg.ucm0)
+    assert abs(tk - int(jk)) <= 1 and rel(tu, ju) <= 1e-9, rel(tu, ju)
     # the other variants above the dense tier no longer raise: species
     # stages and Poisson by the variant (tests/test_torch_species_krylov.py)
     cg = dataclasses.replace(tsys, linearSolver="CG_Jacobi")

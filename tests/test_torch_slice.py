@@ -159,7 +159,8 @@ def test_unported_tiers_raise():
     kind, X = mid.species_factor(uphi)
     assert kind == "inv" and tuple(X.shape) == (2, 488, 488)
     assert X.dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="Multi-device"):
+    with pytest.raises(NotImplementedError,
+                       match="run_distributed_pnp_from_pb"):
         TW.build_pnp_system(tsys, tspace, device_mesh=object(), device="cpu")
     skewed = Tableau("skewed", A=np.array([[-1.0, 1.0, 0.0],
                                            [-1.0, 0.0, 1.0]]),

@@ -141,9 +141,33 @@ def test_linear_solver_variants(systems, variant):
     close(ut, uj, rtol=RTOL)
 
 
-def test_amg_variant_not_ported():
-    with pytest.raises(NotImplementedError, match="AMG"):
-        TL.make_krylov_solver("CG_AMG_SSOR", 100)
+def test_amg_variant_not_ported(systems):
+    """``CG_AMG_SSOR`` is ported: CG under two-level aggregation AMG on the
+    SPD pore operator, with the reference's iteration count and iterate
+    (1e-10); an unknown variant is still a ValueError."""
+    from pnp_tpu.solvers.amg import make_amg_context as j_amg
+    from pnp_tpu_torch.solvers.amg import make_amg_context as t_amg
+
+    tsys, tspace, jsys, jspace = spaces(1)
+    tc = t_context(tsys, tspace, 0, 3, device="cpu")
+    jc = j_context(jsys, jspace, 0, 3)
+    u = 0.3 * np.sin(0.05 * np.arange(tspace.ndof))
+    At = TV.mass_jacobian_el(tc.vt) + 0.5 * TV.pb_jacobian_el(
+        torch.tensor(u)[tc.dofmap], tc.vt, 0.7, 0.06, True, tsys.pi)
+    Aj = JV.mass_jacobian_el(jc.vt) + 0.5 * JV.pb_jacobian_el(
+        jnp.asarray(u)[jc.dofmap], jc.vt, 0.7, 0.06, True, jsys.pi)
+    ops, b = systems
+    op_t, d_t, op_j, d_j = ops["spd"]
+    st = TL.make_krylov_solver("CG_AMG_SSOR", 2000, amg_ctx=t_amg(
+        tc.dofmap, tc.ndof, tc.free, dof_coords=tspace.dof_coords))
+    sj = JL.make_krylov_solver("CG_AMG_SSOR", 2000, amg_ctx=j_amg(
+        jc.dofmap, jc.ndof, jc.free, dof_coords=jspace.dof_coords))
+    bt, bj = torch.tensor(b), jnp.asarray(b)
+    rt = st(op_t, bt, torch.zeros_like(bt), d_t, 1e-9, A_el=At)
+    rj = sj(op_j, bj, jnp.zeros_like(bj), d_j, 1e-9, A_el=Aj)
+    assert rt.converged and bool(rj.converged)
+    assert rt.iterations == int(rj.iterations) > 0
+    close(rt.x, rj.x, rtol=RTOL)
     with pytest.raises(ValueError):
         TL.make_krylov_solver("LU", 100)
 

@@ -286,22 +286,29 @@ def test_run_loop_takes_the_krylov_path(case, tmp_path):
 
 
 def test_gates_that_stay_closed(case):
-    """Not ported: ``CG_AMG_SSOR`` and a device mesh. The mid-size species
-    inverse tier is a block-RAS option: with another solver variant it
-    changes nothing, as in the reference. An unknown variant is a
-    ValueError, as in the reference."""
+    """``CG_AMG_SSOR`` above the dense tier: CG under the two-level AMG on
+    both Krylov paths (one aggregation for phi, one over the species
+    masks' union), held to the reference like the other variants. Not
+    ported: a device mesh (the raise names the owner-partitioned driver).
+    The mid-size species inverse tier is a block-RAS option: with another
+    solver variant it changes nothing, as in the reference. An unknown
+    variant is a ValueError, as in the reference."""
     tsys, tspace = case["tsys"], case["tspace"]
     pb = interop.field(case["pb"])
-    with pytest.raises(NotImplementedError):
-        TW.build_pnp_system(dataclasses.replace(tsys,
-                                                linearSolver="CG_AMG_SSOR"),
-                            tspace, pb_field=pb, device="cpu")
+    j, t = build_pair(case, "alexander2", solver="CG_AMG_SSOR", **RAS)
+    assert (t.factor_kind, t.poisson_tier) == (None, "krylov")
+    worst, worst_cur, counts = compare(
+        j, t, poisson_counts_within=lambda kp: 0.1 * kp)
+    assert worst <= 1e-7 and worst_cur <= 1e-7
+    assert all(0 < k < 100 and 0 < kp < tsys.linearSolverIterations
+               for k, kp in counts)
     jacobi = dataclasses.replace(tsys, linearSolver="BCGS_Jacobi")
     system = TW.build_pnp_system(jacobi, tspace, pb_field=pb,
                                  species_inv_threshold=1000,
                                  dense_poisson_threshold=0, device="cpu")
     assert system.factor_kind is None and system.species_factor is None
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError,
+                       match="run_distributed_pnp_from_pb"):
         TW.build_pnp_system(tsys, tspace, pb_field=pb, device_mesh=object(),
                             device="cpu")
     with pytest.raises(ValueError):

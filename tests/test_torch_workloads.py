@@ -204,8 +204,8 @@ def test_stationary_diffusion_matches_reference(one_wall, solver, reduction,
 def test_stationary_diffusion_stiffness_dump_and_amg(one_wall, tmp_path,
                                                      monkeypatch):
     """``printStiffnessMatrix`` dumps the constrained dense matrix (equal
-    to the reference's to 1e-13), and ``CG_AMG_SSOR`` raises naming its
-    ROADMAP item."""
+    to the reference's to 1e-13), and ``CG_AMG_SSOR`` runs CG under the
+    two-level AMG: the reference's iteration count, the field to 1e-10."""
     tsys, tspace, jsys, jspace = one_wall
     monkeypatch.chdir(tmp_path)
     TSD.run_stationary_diffusion(
@@ -217,10 +217,13 @@ def test_stationary_diffusion_stiffness_dump_and_amg(one_wall, tmp_path,
     want = np.load(tmp_path / "stiffness_matrix.npy")
     assert got.shape == want.shape == (tspace.ndof, tspace.ndof)
     assert rel(got, want) <= 1e-13
-    with pytest.raises(NotImplementedError, match="AMG"):
-        TSD.run_stationary_diffusion(
-            dataclasses.replace(tsys, linearSolver="CG_AMG_SSOR"), tspace,
-            device="cpu")
+    ut, rt = TSD.run_stationary_diffusion(
+        dataclasses.replace(tsys, linearSolver="CG_AMG_SSOR"), tspace,
+        device="cpu")
+    uj, rj = JSD.run_stationary_diffusion(
+        dataclasses.replace(jsys, linearSolver="CG_AMG_SSOR"), jspace)
+    assert rt.converged and rt.iterations == int(rj.iterations) > 0
+    assert rel(ut, uj) <= 1e-10, rel(ut, uj)
 
 
 @pytest.mark.parametrize("convention", ["bce", "monolithic"])
@@ -260,17 +263,21 @@ def test_stationary_pnp_matches_reference(one_wall, from_pb, bootstrap):
 
 def test_stationary_pnp_solver_remap_and_reassembly(one_wall):
     """Every variant of the config surface maps to a BiCGSTAB peer
-    (``CG_AMG_SSOR`` too: the remap comes before the Krylov factory, so
-    the cold start runs; from PB it raises in the PB phase, naming the
-    ROADMAP item), and ``newtonReassembleThreshold`` reuses the Jacobian
-    as in the reference: the same Jacobian builds, 1e-9."""
+    (``CG_AMG_SSOR`` too: the remap comes before the Krylov factory; from
+    PB its PB phase runs CG under the two-level AMG, and the solve matches
+    the reference's, 1e-9), and ``newtonReassembleThreshold`` reuses the
+    Jacobian as in the reference: the same Jacobian builds, 1e-9."""
     tsys, tspace, jsys, jspace = one_wall
     assert TSP._MONOLITHIC_SOLVER == JSP._MONOLITHIC_SOLVER
     amg = dataclasses.replace(tsys, linearSolver="CG_AMG_SSOR")
     assert TSP.run_stationary_pnp(amg, tspace, from_pb=False,
                                   device="cpu").converged
-    with pytest.raises(NotImplementedError, match="AMG"):
-        TSP.run_stationary_pnp(amg, tspace, from_pb=True, device="cpu")
+    rt = TSP.run_stationary_pnp(amg, tspace, from_pb=True, device="cpu")
+    rj = JSP.run_stationary_pnp(
+        dataclasses.replace(jsys, linearSolver="CG_AMG_SSOR"), jspace,
+        from_pb=True)
+    assert rt.converged and rt.iterations == int(rj.iterations)
+    assert rel(rt.u, rj.u) <= 1e-9, rel(rt.u, rj.u)
     kw = dict(newtonReassembleThreshold=0.5, linearSolver="CG_Jacobi")
     rt = TSP.run_stationary_pnp(dataclasses.replace(tsys, **kw), tspace,
                                 from_pb=False, device="cpu")
