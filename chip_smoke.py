@@ -94,6 +94,27 @@ result line:
     driver at P2 on the dense tier (``one_wall_case(64, 10)``, 2,709
     dofs), 3 presolved steps on the card against the CPU to 1e-9, kernel 2
     at n = 6 at that run's E;
+10c. the same driver as processes (``[procs gloo]``): ``pore_case(160,
+    88)`` as 2 ranks x 4 shards, both on the one card over gloo (launched
+    by ``pnp_tpu_torch.tools.multiproc_smoke.launch``, each rank
+    ``chip_smoke.py --procs-worker``): whether gloo takes CUDA tensors in
+    its three collectives, then each rank's part of a distributed phase A,
+    one-level Schwarz Poisson (the reference's rule under several
+    processes), 8 presolved steps with the species factor refreshed every
+    4, every launch counted on each rank; the exchange's and the sum's ms
+    a call; a profiled reuse step of rank 0; kernel 1 on rank 0's (8, L,
+    L) species and (4, L, L) PB Jacobian Schwarz batches and kernel 2 at E
+    = K_l B_E = 11,776, against their plain versions; held against the
+    batch-axis driver in this process forced to one level: its own phase
+    A (the same PB Newton count, the PB field to 1e-8), then each of the
+    ranks' steps again from the ranks' state before it (the run's
+    ``record_states``), fields and currents to 1e-8 of max + 1 (the
+    species only where a one-level Poisson solve stopped unconverged at
+    its cap, by the runs' converged flags; at least 6 of the 8 steps held
+    in full).
+    ``[procs nccl]``: one rank over NCCL (every collective a copy), 2
+    steps from that PB field, against the batch-axis driver, both under
+    PyTorch's deterministic algorithms, to 1e-12;
 12. the mid-size species tier (``[mid-species main]``): ``pore_case(160,
     88)`` with ``species_inv_threshold=16384``, 8 presolved steps, a
     refresh every 4 (kernel 1 at (2, 12097, 12097) each refresh): factor
@@ -131,9 +152,12 @@ under ``poisson_large_shape``, ``very_large_species_shape``,
 mid-size species tier's under ``mid_species_shape`` and the one-wall
 workloads' under ``workloads_shape``, for the distributed run's under
 ``dist_species_shape``, ``dist_pb_shape`` and (kernel 2) ``dist_shape``,
-the P2 run's (kernel 2) under ``p2_shape``; ``launches_very_large``,
-``launches_mid_species``, ``launches_workloads``, ``launches_dist`` and
-``launches_p2`` count those paths' runs. The last line is ``{"ok": true, "device": {...}}``.
+the P2 run's (kernel 2) under ``p2_shape``, rank 0 of ``[procs gloo]``'s
+under ``procs_species_shape``, ``procs_pb_shape`` and (kernel 2)
+``procs_shape``; ``launches_very_large``, ``launches_mid_species``,
+``launches_workloads``, ``launches_dist``, ``launches_p2``,
+``launches_procs_gloo`` (a list, by rank) and ``launches_procs_nccl``
+count those paths' runs. The last line is ``{"ok": true, "device": {...}}``.
 Needs a CUDA device and ``nvcc``; writes the runs' outputs under
 ``chip_smoke_out/`` (gitignored).
 """
@@ -148,6 +172,7 @@ import subprocess
 import sys
 import time
 import traceback
+import types
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 MAIN_STEPS = 10
@@ -211,6 +236,37 @@ DIST_STEPS = 8
 # (each Newton to newtonReduction 1e-9) to 1e-8 relative
 DIST_SLACK = 2e-4
 DIST_PB_TOL = 1e-8
+# the rank path (``[procs gloo]``): 2 ranks x 4 shards on the one card over
+# gloo, each step held against the batch-axis driver's step from the ranks'
+# own state before it (one level both): fields and currents within 1e-8 of
+# max + 1 (the ranks add the dots' partial sums in another order). Not two
+# whole runs: at this size the one-level BiCGSTAB count has a tail (of 80
+# step solves in five runs on an H100, 6 took 1,443-3,000 iterations and 3
+# stopped at the 3,000 cap against 59-118 for the rest), so two runs whose
+# sums differ in the last bits part wherever one solve stops at its cap
+# (2.7e-4 of max + 1 in one run). Where the ranks' or the replay's
+# Poisson solve of a step stopped unconverged at its cap (the run results'
+# converged flags), that step's potential and currents are reported, not
+# held, and its species held all the same; at least PROCS_MIN_HELD steps
+# must be held in full (at that rate, 3 capped of 80, three or more
+# exempted steps of 8 come about once in 50-300 runs; a fault that caps
+# the ranks' Poisson solves fails);
+# ``[procs nccl]``: one rank, every collective a copy, 1e-12
+PROCS_RANKS = 2
+PROCS_TOL = 1e-8
+PROCS_MIN_HELD = DIST_STEPS - 2
+NCCL_STEPS = 2
+PROCS_NCCL_TOL = 1e-12
+# a launch takes 70-125 s on an H100; a step whose Poisson solve runs to
+# the 3,000 cap takes 45-70 s more, and seven such steps still end inside
+PROCS_TIMEOUT_S = 600
+# the profiled reuse step's Poisson solve stops after this many iterations
+# (the run's take 58-128): one in the one-level tail (up to 3,000) gives
+# the profiler 40 times the events and rank 0 minutes of work on them
+# (once past the launch's limit on an H100)
+PROCS_TRACE_MAXITER = 150
+EXCHANGE_REPS = 20
+ALLREDUCE_REPS = 50
 # the P2 production run on the dense tier (2,709 dofs, 1,280 triangles)
 P2_CASE = (64, 10)
 P2_STEPS = 3
@@ -782,6 +838,7 @@ def trace_summary(torch, prof, wall_s: float, label: str,
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
               f"{e.key[:72]}")
     sys.stdout.flush()
+    return dev_ms, n
 
 
 def ras_breakdown(torch, W, PhaseTimer, maybe_trace, res, dev) -> None:
@@ -993,7 +1050,7 @@ def dist_kernels(torch, K, SW, direct, res) -> dict:
     ctx = system.ctx
     sys_r = system.sys
     L = ctx.plan.B_N + ctx.plan.B_H
-    uphi, _ = system.poisson_solve(system.uphi0, system.uc0)
+    uphi = system.poisson_solve(system.uphi0, system.uc0)[0]
     A = system.species_local_f32(uphi).reshape(2 * ctx.K, L, L)
     same = pivot_rows_equal(torch, K, A)
     print(f"[dist kernels] species Schwarz batch ({2 * ctx.K}, {L}, {L}): "
@@ -1034,7 +1091,7 @@ def dist_trace(torch, maybe_trace, res, dev) -> None:
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         uc2, k = system.species_step_reuse(factor, uphi, uc)
-        _, kp = system.poisson_solve(uphi, uc2)
+        kp = system.poisson_solve(uphi, uc2, PROCS_TRACE_MAXITER)[1]
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
     trace_summary(torch, prof, wall, f"reuse ({k} species its, {kp} Poisson "
@@ -1062,6 +1119,386 @@ def dist_plan_timing(space) -> None:
           f"K {DIST_K}: L {plan.B_N + plan.B_H} H_pair {plan.H_pair} B_E2 "
           f"{env_ids.shape[1]}; host seconds: element order {t1 - t0:.3f}, "
           f"halo plan {t2 - t1:.3f}, env maps {t3 - t2:.3f}", flush=True)
+
+
+def gloo_cuda_check(torch, dist, dev, rank: int) -> None:
+    """Whether gloo takes CUDA tensors in ``all_to_all_single``,
+    ``all_reduce`` and ``all_gather`` (2 ranks, a few floats, the values
+    checked): the rank path hands gloo its tensors where they lie."""
+    f64 = dict(dtype=torch.float64, device=dev)
+    sent = torch.arange(4, **f64) + 10 * rank
+    got = torch.empty_like(sent)
+    dist.all_to_all_single(got, sent)
+    total = torch.full((3,), rank + 1.0, **f64)
+    dist.all_reduce(total)
+    parts = [torch.empty(2, **f64) for _ in range(2)]
+    dist.all_gather(parts, torch.full((2,), float(rank), **f64))
+    want = [0.0, 1.0, 10.0, 11.0] if rank == 0 else [2.0, 3.0, 12.0, 13.0]
+    ok = (got.device == dev and got.tolist() == want
+          and total.tolist() == [3.0] * 3
+          and torch.cat(parts).tolist() == [0.0, 0.0, 1.0, 1.0])
+    print(f"[procs gloo] rank {rank}: gloo takes CUDA tensors in "
+          f"all_to_all_single, all_reduce and all_gather: {ok}", flush=True)
+    check(ok, "gloo on CUDA tensors")
+
+
+def procs_collectives(torch, PD, res, dev) -> dict:
+    """Host-clock ms of one halo exchange of a (2, K_l, B_N) species pair
+    and of one ``allreduce_sum`` of two f64 partial sums read back on the
+    host (as a Krylov iteration reads it), both ranks in step."""
+    ctx = res.system.ctx
+    xk = res.system.uc0.reshape(2, ctx.K_local, ctx.plan.B_N)
+    part = torch.ones((2, 1), dtype=torch.float64, device=dev)
+    out = {}
+    for name, reps, fn in (
+            ("exchange_ms", EXCHANGE_REPS, lambda: ctx._forward_b(xk)),
+            ("allreduce_ms", ALLREDUCE_REPS,
+             lambda: float(ctx.allreduce_sum(part)[0, 0]))):
+        fn()
+        torch.cuda.synchronize(dev)
+        PD.barrier(ctx.layout)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize(dev)
+        out[name] = 1e3 * (time.perf_counter() - t0) / reps
+    return out
+
+
+def procs_trace(torch, PD, maybe_trace, res, dev) -> dict:
+    """One reuse step of every rank on the run's final state (species
+    stages on a factor built first, then the Poisson re-solve to at most
+    PROCS_TRACE_MAXITER iterations), rank 0's under the profiler
+    (``chip_smoke_out/procs/trace_reuse/``). The ranks'
+    last collective work: rank 0 writes and reads its trace after it, with
+    no rank waiting on it in a collective (a wait is cut at the process
+    group's timeout)."""
+    system = res.system
+    ctx = system.ctx
+    put = lambda v: torch.from_numpy(ctx.partition(v)).to(dev)
+    uphi, uc = put(res.phi), torch.stack([put(res.cp), put(res.cm)])
+    factor = system.species_factor(uphi)
+    system.species_step_reuse(factor, uphi, uc)
+    trace_dir = (os.path.join(REPO, "chip_smoke_out", "procs", "trace_reuse")
+                 if PD.is_coordinator() else None)
+    with maybe_trace(trace_dir) as prof:
+        torch.cuda.synchronize(dev)
+        PD.barrier(ctx.layout)
+        t0 = time.perf_counter()
+        uc2, k = system.species_step_reuse(factor, uphi, uc)
+        kp = system.poisson_solve(uphi, uc2, PROCS_TRACE_MAXITER)[1]
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    if prof is None:
+        return {}
+    dev_ms, n = trace_summary(torch, prof, wall, f"rank 0 reuse ({k} "
+                              f"species its, {kp} Poisson its)",
+                              tag="procs gloo trace")
+    print(f"[procs gloo trace] written and read in "
+          f"{time.perf_counter() - t0 - wall:.1f} s", flush=True)
+    return {"trace_wall_ms": 1e3 * wall, "trace_device_ms": dev_ms,
+            "trace_kernels": n}
+
+
+def procs_kernel_inputs(torch, K, SW, res):
+    """Both kernels' inputs at the shapes this rank's run gave them (every
+    rank builds its own: the builds exchange): the (2 K_l, L, L) species
+    Schwarz batch at the presolved potential, the (K_l, L, L) Schwarz
+    batch of phase A's PB Jacobian at the PB field, and kernel 2's
+    arguments at E = K_l B_E."""
+    system = res.system
+    ctx = system.ctx
+    sys_r = system.sys
+    L = ctx.plan.B_N + ctx.plan.B_H
+    uphi = system.poisson_solve(system.uphi0, system.uc0)[0]
+    A_sp = system.species_local_f32(uphi).reshape(2 * ctx.K_local, L, L)
+    vt = system.vt_phi
+    args = (ctx.gather_elem(system.pb), vt.shape, vt.gradphi, vt.qw, vt.qy,
+            sys_r.l_b, sys_r.c0, sys_r.cylindrical, sys_r.pi)
+    _, J_el = K.pb_residual_jacobian_plain(*args, outputs="jacobian")
+    A_pb = SW.build_local_matrices(ctx, J_el, system.free_phi).to(
+        torch.float32)
+    return A_sp, A_pb, args
+
+
+def procs_kernels(torch, K, direct, A_sp, A_pb, args, E: int) -> dict:
+    """Rank 0's kernel checks (alone, after the ranks parted): kernel 1 on
+    its species and PB Schwarz batches (equal pivot rows, against the
+    plain version, beside ``torch.linalg.inv``), kernel 2 at E = K_l B_E."""
+    out = {}
+    for key, A, label in (("gj_species", A_sp, "rank 0 species Schwarz "
+                           "batch"), ("gj_pb", A_pb, "rank 0 PB Jacobian "
+                                      "Schwarz batch")):
+        same = pivot_rows_equal(torch, K, A)
+        print(f"[procs kernels] {label} {tuple(A.shape)}: pivot rows equal "
+              f"the plain version's {same}")
+        check(same, f"kernel 1's pivots on the {label}")
+        out[key] = gj_shape_check(torch, K, direct.contraction_ok, A, label,
+                                  5, 3)
+    out["pb"] = pb_check(torch, K, args, E)
+    return out
+
+
+def procs_worker(argv) -> int:
+    """One rank of ``[procs gloo]`` / ``[procs nccl]`` (``chip_smoke.py
+    --procs-worker`` with ``multiproc_smoke``'s flags, launched by
+    :func:`procs_launch`): the run, and with ``--measure`` the gloo check
+    before it and, after it, the collectives' times, a profiled reuse step
+    and rank 0's kernel checks; the coordinator writes it all to
+    ``--out``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from pnp_tpu_torch.operators import kernels as K
+    from pnp_tpu_torch.parallel import distributed as PD
+    from pnp_tpu_torch.solvers import direct
+    from pnp_tpu_torch.solvers import schwarz as SW
+    from pnp_tpu_torch.tools import multiproc_smoke as MS
+    from pnp_tpu_torch.utils.profiling import maybe_trace
+
+    ap = MS.parser()
+    ap.add_argument("--measure", action="store_true")
+    ap.add_argument("--deterministic", action="store_true")
+    args = ap.parse_args(argv)
+    if args.deterministic:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    layout = MS.start(args)
+    dev = layout.device
+    rank = layout.rank
+    extra = {}
+    try:
+        if args.measure:
+            gloo_cuda_check(torch, dist, dev, rank)
+        res, counts = MS.run(args, layout, record_states=True)
+        arrays = MS.result_arrays(res, counts, layout)
+        extra["states"] = np.array(res.states)
+        if args.measure:
+            extra.update(procs_collectives(torch, PD, res, dev))
+            inputs = procs_kernel_inputs(torch, K, SW, res)
+        PD.barrier(layout)
+        if args.measure:
+            extra.update(procs_trace(torch, PD, maybe_trace, res, dev))
+    finally:
+        dist.destroy_process_group()
+    if args.measure and rank == 0:
+        ks = procs_kernels(torch, K, direct, *inputs, res.system.ctx.E_flat)
+        extra["kernels_json"] = json.dumps(ks)
+    if args.out and rank == 0:
+        np.savez(args.out, **arrays, **extra)
+    return 0
+
+
+def procs_launch(MS, name: str, procs: int, flags) -> dict:
+    """``procs`` ranks of :func:`procs_worker` on the card; their
+    coordinator's ``.npz`` (``chip_smoke_out/procs/<name>.npz``), loaded."""
+    import numpy as np
+
+    out = os.path.join(REPO, "chip_smoke_out", "procs", f"{name}.npz")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    if os.path.exists(out):
+        os.remove(out)
+    cmd = [sys.executable, os.path.abspath(__file__), "--procs-worker",
+           "--procs", str(procs), "--case", "pore", "--nx",
+           str(RAS_CASE[0]), "--ny", str(RAS_CASE[1]), "--shards",
+           str(DIST_K), "--presolve", "--out", out, *flags]
+    t0 = time.perf_counter()
+    rc = MS.launch(cmd, procs, timeout=PROCS_TIMEOUT_S)
+    took = f"exit {rc} after {time.perf_counter() - t0:.1f} s"
+    print(f"[procs {name}] {procs} rank(s) {took}", flush=True)
+    check(rc == 0, f"[procs {name}]: a rank failed ({took} of at most "
+          f"{PROCS_TIMEOUT_S} s; the failed ranks' last lines are above)")
+    return dict(np.load(out))
+
+
+def npz_run(r):
+    """A coordinator's ``.npz`` as a run result for :func:`dist_fields_err`."""
+    return types.SimpleNamespace(
+        phi=r["phi"], cp=r["cp"], cm=r["cm"],
+        current_history=list(zip(r["times"], r["ip"], r["im"])))
+
+
+def procs_gloo(torch, TD, MS, pore_case, dev):
+    """``[procs gloo]``: 2 ranks x K/2 shards of ``pore_case(160, 88)``,
+    both on the one card over gloo, with their own distributed phase A,
+    one-level Schwarz Poisson, DIST_STEPS presolved steps with the species
+    factor refreshed every RAS_REFRESH, every step's state recorded; held
+    against the batch-axis driver in this process on the same case forced
+    to one level: its own phase A (the same PB Newton count, the PB field
+    to DIST_PB_TOL), then each step from the ranks' state before it (see
+    PROCS_TOL, PROCS_MIN_HELD). Returns the coordinator's record, its kernel checks and the
+    launches by rank."""
+    import numpy as np
+
+    nodes = RAS_SHAPE[0]
+    r = procs_launch(MS, "gloo", PROCS_RANKS, [
+        "--backend", "gloo", "--steps", str(DIST_STEPS), "--refresh",
+        str(RAS_REFRESH), "--measure", "--output-dir",
+        os.path.join(REPO, "chip_smoke_out", "procs", "gloo_out")])
+    names = [str(n) for n in r["kernel_names"]]
+    launches = {n: [int(v) for v in r["launches"][:, i]]
+                for i, n in enumerate(names)}
+    fresh = [bool(f) for f in r["factor_rebuilt"]]
+    mean = lambda xs: sum(xs) / len(xs)
+    busy = float(r["trace_device_ms"]) / float(r["trace_wall_ms"])
+    ms = [float(t) for t in r["step_ms"]]
+    fa = [t for t, f in zip(ms, fresh) if f]
+    re_ = [t for t, f in zip(ms, fresh) if not f]
+    print(f"[procs gloo] {PROCS_RANKS} ranks x {DIST_K // PROCS_RANKS} "
+          f"shards: Poisson tier {r['poisson_tier']}, phase A "
+          f"{float(r['pb_seconds']):.3f} s ({int(r['pb_newton_iterations'])}"
+          f" Newton iterations, {int(r['pb_jacobian_builds'])} Jacobian "
+          f"builds), setup {float(r['setup_seconds']):.3f} s")
+    print("[procs gloo] step ms " + " ".join(
+        f"{t:.1f}{'f' if f else ''}" for t, f in zip(ms, fresh))
+          + f"; factor step mean {mean(fa):.1f} ms, reuse step mean "
+          f"{mean(re_):.1f} ms")
+    print(f"[procs gloo] species BiCGSTAB its "
+          f"{r['species_iterations'].tolist()}, Poisson BiCGSTAB its "
+          f"{r['poisson_iterations'].tolist()}; exchange "
+          f"{float(r['exchange_ms']):.3f} ms a call, allreduce_sum "
+          f"{float(r['allreduce_ms']):.3f} ms a call; rank 0's profiled "
+          f"reuse step: wall {float(r['trace_wall_ms']):.1f} ms, device "
+          f"{float(r['trace_device_ms']):.2f} ms ({100 * busy:.1f} % busy), "
+          f"{int(r['trace_kernels'])} kernels; launches by rank "
+          f"{launches}", flush=True)
+    check(str(r["poisson_tier"]) == "schwarz", "one-level Schwarz not taken")
+    check(int(r["n_ranks"]) == PROCS_RANKS, "ranks")
+    check(fresh == [i % RAS_REFRESH == 0 for i in range(DIST_STEPS)],
+          f"factor refresh schedule {fresh}")
+    check(all(r[n].shape == (nodes,) and np.isfinite(r[n]).all()
+              for n in ("phi", "cp", "cm")), "non-finite or misshapen final "
+          "state")
+    want = int(r["pb_jacobian_builds"]) + 1 + DIST_STEPS // RAS_REFRESH
+    for name, counts in launches.items():
+        check(all(c > 0 for c in counts), f"kernel {name} was not launched "
+              "on every rank")
+    check(launches["gj_inverse"] == [want] * PROCS_RANKS,
+          f"gj_inverse launched {launches['gj_inverse']} times, not {want} "
+          "on each rank")
+    with open(os.path.join(REPO, "chip_smoke_out", "procs", "gloo_out",
+                           "current.dat")) as f:
+        rows = [line.split() for line in f if line.strip()]
+    check(len(rows) == DIST_STEPS, "current.dat rows")
+
+    check(r["states"].shape == (DIST_STEPS + 1, 3, nodes),
+          f"recorded states {r['states'].shape}")
+    procs_replay(torch, TD, r, pore_case, dev)
+    return r, json.loads(str(r["kernels_json"])), launches
+
+
+def procs_replay(torch, TD, r, pore_case, dev) -> None:
+    """``[procs gloo]``'s hold: the batch-axis driver (K = DIST_K, forced
+    to one level) with its own phase A, then each of the ranks' steps again
+    from the ranks' state before it, on the same factor schedule: species
+    to PROCS_TOL of max + 1 on every step; potential and currents to
+    PROCS_TOL on every step whose Poisson solves (the ranks' and the
+    replay's) converged, and at least PROCS_MIN_HELD such steps."""
+    from pnp_tpu_torch.postprocess.ionflux import (build_ionflux_tables,
+                                                   calc_ion_flux)
+
+    sys_r, space_r = pore_case(*RAS_CASE)
+    saved = TD.TWO_LEVEL_DOFS
+    TD.TWO_LEVEL_DOFS = space_r.ndof           # one level, as the ranks
+    try:
+        system = TD.build_dist_pnp_system(sys_r, space_r, DIST_K, device=dev)
+    finally:
+        TD.TWO_LEVEL_DOFS = saved
+    check(system.poisson_tier == "schwarz", "the replay's tier")
+    ctx = system.ctx
+    put = lambda v: torch.from_numpy(ctx.partition(v)).to(dev)
+    tables = build_ionflux_tables(space_r, sys_r.cylindrical, sys_r.pi,
+                                  sys_r.n_surfaces, dev)
+    states = r["states"]
+    fields, species, kept, species_its, poisson_its = [], [], [], [], []
+    for i in range(DIST_STEPS):
+        uphi = put(states[i][0])
+        uc = torch.stack([put(states[i][1]), put(states[i][2])])
+        if i % RAS_REFRESH == 0:
+            factor = system.species_factor(uphi)
+        uc, k = system.species_step_reuse(factor, uphi, uc)
+        uphi, kp, converged = system.poisson_solve(uphi, uc)
+        species_its.append(k)
+        poisson_its.append(kp)
+        phi_g = system.to_global(uphi)
+        c_g = system.to_global(uc)
+        ip, im = calc_ion_flux(tables, *(torch.from_numpy(v).to(dev)
+                                         for v in (phi_g, *c_g)))
+        species.append(max(scaled_err(c_g[n], states[i + 1][1 + n])
+                           for n in (0, 1)))
+        fields.append(max(scaled_err(phi_g, states[i + 1][0]),
+                          scaled_err(ip.cpu().numpy(), r["ip"][i]),
+                          scaled_err(im.cpu().numpy(), r["im"][i])))
+        kept.append(converged and bool(r["poisson_converged"][i]))
+    pb_err = rel_err(torch.from_numpy(r["pb"]),
+                     torch.from_numpy(system.to_global(system.pb)))
+    held = [f for f, k in zip(fields, kept) if k]
+    print(f"[procs gloo] held against the batch-axis driver (K {DIST_K}, "
+          f"one level, in this process): PB Newton "
+          f"{system.pb_newton_iterations} (ranks "
+          f"{int(r['pb_newton_iterations'])}), PB field rel err "
+          f"{pb_err:.3e} (tol {DIST_PB_TOL:g}); each step again from the "
+          f"ranks' state: species its {species_its} (ranks "
+          f"{r['species_iterations'].tolist()}), Poisson its {poisson_its} "
+          f"(ranks {r['poisson_iterations'].tolist()}); species "
+          f"{max(species):.3e}, potential and currents "
+          + " ".join(f"{f:.1e}" + ("" if k else "*")
+                     for f, k in zip(fields, kept))
+          + f" of max + 1 (tol {PROCS_TOL:g}); {len(held)} of {DIST_STEPS} "
+          f"steps held, {DIST_STEPS - len(held)} exempted (* a Poisson "
+          f"solve stopped unconverged at its cap; at least {PROCS_MIN_HELD} "
+          "held)", flush=True)
+    check(system.pb_newton_iterations == int(r["pb_newton_iterations"]),
+          "PB Newton iterations differ")
+    check(pb_err <= DIST_PB_TOL, "[procs gloo] PB field")
+    check(max(species) <= PROCS_TOL, "[procs gloo] species, step by step")
+    check(len(held) >= PROCS_MIN_HELD,
+          f"[procs gloo] only {len(held)} steps held: the others' Poisson "
+          "solves stopped at their cap")
+    check(max(held) <= PROCS_TOL,
+          "[procs gloo] potential and currents, step by step")
+
+
+def procs_nccl(torch, TD, MS, pore_case, dev):
+    """``[procs nccl]``: one rank over NCCL (every collective a copy), K =
+    DIST_K, NCCL_STEPS presolved steps from ``[procs gloo]``'s PB field,
+    against the batch-axis driver in this process to PROCS_NCCL_TOL of
+    max + 1. Both run with PyTorch's deterministic algorithms: otherwise
+    the card's atomic scatters add in another order in every run, and two
+    runs of the same driver differ near the solvers' 1e-10 tolerance.
+    Returns the rank's launches."""
+    import numpy as np
+
+    pb_path = os.path.join(REPO, "chip_smoke_out", "procs", "gloo.npz")
+    r = procs_launch(MS, "nccl", 1, [
+        "--backend", "nccl", "--steps", str(NCCL_STEPS), "--pb-field",
+        pb_path, "--deterministic"])
+    sys_r, space_r = pore_case(*RAS_CASE)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ref = TD.run_distributed_pnp_from_pb(
+            sys_r, space_r, DIST_K, n_steps=NCCL_STEPS,
+            presolve_potential=True, pb_field=np.load(pb_path)["pb"],
+            device=dev)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    err = dist_fields_err(npz_run(r), ref, scaled_err)
+    launches = {str(n): int(v) for n, v in zip(r["kernel_names"],
+                                                r["launches"][0])}
+    print(f"[procs nccl] 1 rank, K {DIST_K}, Poisson tier "
+          f"{r['poisson_tier']}: step ms "
+          + " ".join(f"{float(t):.1f}" for t in r["step_ms"])
+          + f" (batch axis: " + " ".join(f"{t:.1f}" for t in ref.step_ms)
+          + f"), species its {r['species_iterations'].tolist()} "
+          f"({ref.species_iterations}), Poisson its "
+          f"{r['poisson_iterations'].tolist()} ({ref.poisson_iterations}); "
+          f"launches {launches}; fields and currents {err:.3e} of max + 1 "
+          f"(tol {PROCS_NCCL_TOL:g})", flush=True)
+    check(str(r["poisson_tier"]) == ref.system.poisson_tier, "tier")
+    check(launches["gj_inverse"] > 0, "kernel gj_inverse was not launched")
+    check(err <= PROCS_NCCL_TOL, "[procs nccl] against the batch-axis driver")
+    return launches
 
 
 def p2_phase(torch, K, W, problems, make_scalar_context, dev):
@@ -1544,6 +1981,7 @@ def main() -> int:
         from pnp_tpu_torch.solvers import schwarz as SW
         from pnp_tpu_torch.workloads import distributed_pnp as TD
         from pnp_tpu_torch.workloads.pb import solve_pb
+        from pnp_tpu_torch.tools import multiproc_smoke as MS
     except ImportError as e:
         print(f"chip_smoke: cannot import the port ({e}); run it from the "
               "repository root", file=sys.stderr)
@@ -1673,6 +2111,12 @@ def main() -> int:
     dist_k = dist_kernels(torch, K, SW, direct, dist_res)
     dist_trace(torch, maybe_trace, dist_res, dev)
     del dist_res
+    print(f"[owner-partitioned, one process, done] "
+          f"{time.perf_counter() - t_all:.1f} s", flush=True)
+
+    # ---- the same driver as processes: ranks on the card ------------------
+    _, procs_k, procs_counts = procs_gloo(torch, TD, MS, pore_case, dev)
+    nccl_counts = procs_nccl(torch, TD, MS, pore_case, dev)
     p2_k, p2_counts = p2_phase(torch, K, W, problems, make_scalar_context,
                                dev)
     print(f"[distributed and P2 done] {time.perf_counter() - t_all:.1f} s",
@@ -1718,7 +2162,11 @@ def main() -> int:
          "launches_dist": dist_counts["gj_inverse"],
          "dist_species_shape": dist_k["gj_species"],
          "dist_pb_shape": dist_k["gj_pb"],
-         "launches_p2": p2_counts["gj_inverse"]},
+         "launches_p2": p2_counts["gj_inverse"],
+         "launches_procs_gloo": procs_counts["gj_inverse"],
+         "launches_procs_nccl": nccl_counts["gj_inverse"],
+         "procs_species_shape": procs_k["gj_species"],
+         "procs_pb_shape": procs_k["gj_pb"]},
         {"name": "pb_residual_jacobian", "route": "cuda",
          "source": "pnp_tpu_torch/csrc/pb_element.cu",
          "replaces": "pnp_tpu/operators/pallas_kernels.py:105",
@@ -1735,7 +2183,10 @@ def main() -> int:
          "launches_dist": dist_counts["pb_residual_jacobian"],
          "dist_shape": dist_k["pb"],
          "launches_p2": p2_counts["pb_residual_jacobian"],
-         "p2_shape": p2_k},
+         "p2_shape": p2_k,
+         "launches_procs_gloo": procs_counts["pb_residual_jacobian"],
+         "launches_procs_nccl": nccl_counts["pb_residual_jacobian"],
+         "procs_shape": procs_k["pb"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1746,6 +2197,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--procs-worker"]:
+            sys.exit(procs_worker(sys.argv[2:]))
         sys.exit(main())
     except Exception:  # any failed phase: report it and print no result
         traceback.print_exc()

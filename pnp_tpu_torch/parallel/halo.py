@@ -12,10 +12,12 @@ The analogue of DUNE-ISTL's nonoverlapping point-to-point halo exchange:
   * contributions landing on halo rows are returned to their owners by the
     transposed exchange (same index plan, reversed direction).
 
-The K shards are a leading batch axis of tensors on one device: the
-exchange is a gather into (K_src, K_dst, H) buffers, a transpose of the
-shard axes and a scatter, written without materializing any K x K copy
-of a vector (``expand`` + ``torch.gather``). :func:`forward_halo` and
+In one process the K shards are a leading batch axis of tensors on one
+device: the exchange is a gather into (K_src, K_dst, H) buffers, a
+transpose of the shard axes and a scatter, written without materializing
+any K x K copy of a vector (``expand`` + ``torch.gather``). Under ranks
+each holds K_l of the shards and the transpose becomes one
+``all_to_all_single`` (:mod:`.distributed`). :func:`forward_halo` and
 :func:`backward_return` are the only two places where a shard reads
 another shard's values; :class:`..parallel.dist.DistContext` exchanges
 through them too.
@@ -197,35 +199,44 @@ def plan_tensors(plan: HaloPlan, device, A_el=None):
     return (A_p,) + tables
 
 
-def forward_halo(x, send_idx, recv_pos, B_H: int):
-    """(S, K, B_N) owned values -> (S, K, B_H) halo values fetched from
-    their owners: pack (S, K_src, K_dst, H), swap the shard axes, scatter
-    into each destination's halo block (padded pairs land in a dropped
-    slot B_H)."""
-    S, K, B_N = x.shape
-    H = send_idx.shape[-1]
-    src = x[:, :, None, :].expand(S, K, K, B_N)
-    buf = torch.gather(src, 3, send_idx[None].expand(S, K, K, H))
-    buf_t = buf.transpose(1, 2).reshape(S, K, K * H)     # (S, Kdst, Ksrc*H)
-    halo = torch.zeros((S, K, B_H + 1), dtype=x.dtype, device=x.device)
-    halo.scatter_(2, recv_pos.reshape(K, K * H)[None].expand(S, K, K * H),
-                  buf_t)
+def _transpose_shards(buf):
+    """The shard-axis swap with every shard in this process."""
+    return buf.transpose(1, 2)
+
+
+def forward_halo(x, send_idx, recv_pos, B_H: int, swap=None):
+    """(S, K_l, B_N) owned values -> (S, K_l, B_H) halo values fetched from
+    their owners: pack (S, K_l src, K dst, H) from this process's rows of
+    ``send_idx`` (K_l, K, H), swap the shard axes, scatter through its rows
+    of ``recv_pos`` into each destination's halo block (padded pairs land
+    in a dropped slot B_H). ``swap``: the shard-axis swap, a transpose
+    where all K shards are here (``K_l = K``, the default), one collective
+    over ranks otherwise (:func:`.distributed.swap_shard_axes`)."""
+    S, K_l, B_N = x.shape
+    K, H = send_idx.shape[1], send_idx.shape[2]
+    src = x[:, :, None, :].expand(S, K_l, K, B_N)
+    buf = torch.gather(src, 3, send_idx[None].expand(S, K_l, K, H))
+    buf_t = (swap or _transpose_shards)(buf).reshape(S, K_l, K * H)
+    halo = torch.zeros((S, K_l, B_H + 1), dtype=x.dtype, device=x.device)
+    halo.scatter_(2, recv_pos.reshape(K_l, K * H)[None].expand(
+        S, K_l, K * H), buf_t)
     return halo[:, :, :B_H]
 
 
-def backward_return(y_halo, send_idx, recv_pos, B_N: int):
-    """(S, K, B_H) additive halo contributions -> (S, K, B_N) updates of
-    their owners: the transposed exchange of :func:`forward_halo`."""
-    S, K, B_H = y_halo.shape
-    H = send_idx.shape[-1]
-    yh = torch.cat([y_halo, y_halo.new_zeros((S, K, 1))], dim=2)
-    src = yh[:, :, None, :].expand(S, K, K, B_H + 1)
-    buf = torch.gather(src, 3, recv_pos[None].expand(S, K, K, H))
+def backward_return(y_halo, send_idx, recv_pos, B_N: int, swap=None):
+    """(S, K_l, B_H) additive halo contributions -> (S, K_l, B_N) updates
+    of their owners: the transposed exchange of :func:`forward_halo`, the
+    same ``swap``."""
+    S, K_l, B_H = y_halo.shape
+    K, H = send_idx.shape[1], send_idx.shape[2]
+    yh = torch.cat([y_halo, y_halo.new_zeros((S, K_l, 1))], dim=2)
+    src = yh[:, :, None, :].expand(S, K_l, K, B_H + 1)
+    buf = torch.gather(src, 3, recv_pos[None].expand(S, K_l, K, H))
     buf = torch.where(recv_pos[None] < B_H, buf, 0.0)    # (S,Ksend,Kown,H)
-    buf_t = buf.transpose(1, 2).reshape(S, K, K * H)     # (S,Kown,Ksend*H)
-    acc = torch.zeros((S, K, B_N), dtype=y_halo.dtype, device=y_halo.device)
-    acc.scatter_add_(2, send_idx.reshape(K, K * H)[None].expand(S, K, K * H),
-                     buf_t)
+    buf_t = (swap or _transpose_shards)(buf).reshape(S, K_l, K * H)
+    acc = torch.zeros((S, K_l, B_N), dtype=y_halo.dtype, device=y_halo.device)
+    acc.scatter_add_(2, send_idx.reshape(K_l, K * H)[None].expand(
+        S, K_l, K * H), buf_t)
     return acc
 
 

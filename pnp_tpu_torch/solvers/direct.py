@@ -64,25 +64,34 @@ def contraction_ok(A32, X) -> bool:
     return bool(contraction_verdicts(A32, X).all())
 
 
-def batched_inv_f32(A_dense, batch_names=("matrix",), batch_shape=None):
+def batched_inv_f32(A_dense, batch_names=("matrix",), batch_shape=None,
+                    reduce=None):
     """(S, N, N) -> f32 explicit inverses through :func:`kernels.gj_inverse`
     (the CUDA kernel on a CUDA tensor, its plain version on the CPU),
     checked per matrix by :func:`contraction_verdicts`. A failed probe
     raises, naming the failing matrices by ``batch_names`` over
     ``batch_shape`` (the flat batch index by default): the reference's
-    fallback to a library inverse is not carried over."""
+    fallback to a library inverse is not carried over. ``reduce``: where
+    each process inverts its own part of a batch (ranks of the
+    owner-partitioned driver), the sum over processes of the count of
+    failed matrices, so that every process raises at the same call."""
     A32 = A_dense.to(torch.float32)
     X = K.gj_inverse(A32)
     ok = contraction_verdicts(A32, X)
-    if not bool(ok.all()):
+    n_failed = (~ok).sum().to(torch.float64)
+    if reduce is not None:
+        n_failed = reduce(n_failed)
+    if float(n_failed) > 0:
         probe_failures["count"] += 1
         shape = tuple(batch_shape) if batch_shape else (A32.shape[0],)
         bad = [dict(zip(batch_names, (int(i) for i in ix)))
                for ix in zip(*(t.tolist() for t in torch.unravel_index(
                    torch.nonzero(~ok.cpu())[:, 0], shape)))]
+        where = ("" if reduce is None else
+                 f"{int(n_failed)} matrices over all processes; ")
         raise FloatingPointError(
             f"batched_inv_f32: Gauss-Jordan inverse of {tuple(A32.shape)} "
-            f"failed the contraction probe on {len(bad)} of "
+            f"failed the contraction probe on {where}{len(bad)} of "
             f"{A32.shape[0]}: {bad[:8]}")
     return X
 

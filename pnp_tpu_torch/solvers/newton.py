@@ -8,6 +8,11 @@ accept-best backtracking line search: halve lambda until the new defect
 jitted line-search ``while_loop`` is a Python loop here, with the same
 accept/keep-best decisions; trial steps whose result the reference
 discards are not evaluated.
+
+``reduce``: as for :mod:`.krylov`, the sum over processes of the defect's
+f64 partial sum where each holds a part of the vector (None: it is whole
+here), so that every process tests convergence and accepts a line-search
+trial on the same number.
 """
 
 from __future__ import annotations
@@ -44,8 +49,9 @@ class NewtonResult:
     jacobian_builds: int = 0
 
 
-def _defect(r) -> float:
-    return float(torch.sqrt(torch.dot(r, r)))
+def _defect(r, reduce=None) -> float:
+    s = torch.dot(r, r)
+    return float(torch.sqrt(s if reduce is None else reduce(s)))
 
 
 def newton_solve(
@@ -55,6 +61,7 @@ def newton_solve(
     params: NewtonParams,
     assemble_fn: Callable = None,
     assembled_solve_fn: Callable = None,
+    reduce: Callable = None,
 ) -> NewtonResult:
     """Solve residual_fn(u) = 0.
 
@@ -68,7 +75,7 @@ def newton_solve(
         raise ValueError("assemble_fn and assembled_solve_fn come as a pair")
     u = u0
     r = residual_fn(u)
-    defect0 = _defect(r)
+    defect0 = _defect(r, reduce)
     defect = defect0
     if defect0 < params.abs_limit:
         return NewtonResult(u=u, defect=defect0, initial_defect=defect0,
@@ -100,7 +107,8 @@ def newton_solve(
             jac_builds += 1
         total_lin += int(lin_iters)
         prev_defect = defect
-        u, r, defect = _line_search(residual_fn, params, u, z, defect)
+        u, r, defect = _line_search(residual_fn, params, u, z, defect,
+                                    reduce)
         if params.verbosity >= 2:
             print(f"  Newton {it + 1}: defect {defect:.6e} "
                   f"(reduction {defect / defect0:.3e}, lin iters {lin_iters})")
@@ -115,14 +123,15 @@ def newton_solve(
                         jacobian_builds=jac_builds)
 
 
-def _line_search(residual_fn, params: NewtonParams, u, z, defect: float):
+def _line_search(residual_fn, params: NewtonParams, u, z, defect: float,
+                 reduce=None):
     """Hackbusch-Reusken accept-best backtracking. ``line_search_max == 0``
     takes the plain Newton step."""
 
     def try_lambda(lam):
         u_new = u - lam * z
         r_new = residual_fn(u_new)
-        return u_new, r_new, _defect(r_new)
+        return u_new, r_new, _defect(r_new, reduce)
 
     if params.line_search_max == 0:
         return try_lambda(1.0)

@@ -5,23 +5,28 @@ The counterpart of the SSOR/ILU smoothing inside the reference's NOVLP
 Krylov solvers (src/instationary_pnp_from_pb_md.hh:188): each shard
 assembles the TRUE principal submatrix A[loc, loc] of its [owned | halo]
 local dof set (its own element blocks plus the gathered blocks of its
-env elements), inverts it in f32 (one (S*K, L, L) batch through
-:func:`.direct.batched_inv_f32`, the Gauss-Jordan kernel on CUDA, behind
-the contraction probe), and one preconditioner apply is one halo exchange
-plus one batched f32 matvec a shard. With the halo layer as overlap this
-is restricted additive Schwarz (RAS) with exact subdomain solves: pair it
-with BiCGSTAB; ``restricted=False`` (symmetric additive Schwarz) with CG.
+env elements), inverts it in f32 (one (S*K_l, L, L) batch of this
+process's shards through :func:`.direct.batched_inv_f32`, the
+Gauss-Jordan kernel on CUDA, behind the contraction probe), and one
+preconditioner apply is one halo exchange plus one batched f32 matvec a
+shard. With the halo layer as overlap this is restricted additive
+Schwarz (RAS) with exact subdomain solves: pair it with BiCGSTAB;
+``restricted=False`` (symmetric additive Schwarz) with CG.
 
 Floating subdomains (interior shards of a pure-Laplace operator) are
 regularized by a relative diagonal shift, which perturbs only the
 preconditioner. ``factor_local_matrices``/``make_ras_precond`` keep the
 reference's LU + triangular-solve path for A/B comparison
 (``use_inverse=False``). The reference's ``shard_map`` plumbing
-(``_shard_map_ok``, ``_local_spec``) has no counterpart: the shards are a
-batch axis here.
+(``_shard_map_ok``, ``_local_spec``) has no counterpart: a process's
+shards are a batch axis here. Under ranks (:mod:`..parallel.distributed`)
+the env blocks come through one ``all_to_all_single`` an assembly
+(:meth:`..parallel.dist.DistContext.env_blocks`), the probe's verdict is
+summed over ranks, and the coarse level of :func:`build_p1_coarse_dist`
+is refused, as the reference's multi-process driver keeps to one level.
 
-Memory: S * K * L^2 f32 with L = B_N + B_H; the assembly's f64 scratch
-is S * K * (L+1)^2.
+Memory: S * K_l * L^2 f32 with L = B_N + B_H; the assembly's f64
+scratch is S * K_l * (L+1)^2.
 """
 
 from __future__ import annotations
@@ -36,12 +41,13 @@ F32 = torch.float32
 
 def build_local_matrices(ctx, A_el, free, rel_shift: float = 1e-7,
                          env: bool = True):
-    """Per-shard dense local matrices, (K, L, L) / (S, K, L, L) in A_el's
-    dtype, with identity on constrained and padded slots and a
+    """Per-shard dense local matrices, (K_l, L, L) / (S, K_l, L, L) in
+    A_el's dtype, with identity on constrained and padded slots and a
     ``rel_shift * max|diag|`` shift on the free diagonals.
 
     ctx:   :class:`..parallel.dist.DistContext`.
-    A_el:  flat element blocks (K*B_E, n, n) or batched (S, K*B_E, n, n).
+    A_el:  flat element blocks (K_l*B_E, n, n) or batched (S, K_l*B_E, n,
+           n).
     free:  (Kb,) / (S, Kb) bool masks (False = Dirichlet or padding).
     env:   True (default) adds each shard's env-element blocks, so the
            local matrix is the true principal submatrix; False keeps the
@@ -51,11 +57,11 @@ def build_local_matrices(ctx, A_el, free, rel_shift: float = 1e-7,
         A_el, free = A_el[None], free[None]
     S = A_el.shape[0]
     plan = ctx.plan
-    K, B_E, n = plan.K, plan.B_E, ctx.n
+    K, B_E, n = ctx.K_local, plan.B_E, ctx.n
     L = plan.B_N + plan.B_H
     dev, dt = A_el.device, A_el.dtype
 
-    f_loc = ctx.local_with_halo(free.to(dt))                  # (S, K, L)
+    f_loc = ctx.local_with_halo(free.to(dt))                  # (S, K_l, L)
     s_ix = torch.arange(S, device=dev)[:, None, None, None, None]
     k_ix = torch.arange(K, device=dev)[None, :, None, None, None]
 
@@ -72,14 +78,7 @@ def build_local_matrices(ctx, A_el, free, rel_shift: float = 1e-7,
     add_blocks(A, A_el.reshape(S, K, B_E, n, n),
                ctx.dofmap_local.reshape(K, B_E, n))
     if env:
-        env_ids_np, env_dofmap_np = ctx.env_maps()
-        B_E2 = env_ids_np.shape[1]
-        env_ids = torch.as_tensor(env_ids_np.reshape(-1).astype(np.int64),
-                                  device=dev)
-        dme = torch.as_tensor(env_dofmap_np.astype(np.int64), device=dev)
-        Ae = A_el.index_select(1, env_ids).reshape(S, K, B_E2, n, n)
-        add_blocks(A, Ae, dme)
-        del Ae
+        add_blocks(A, ctx.env_blocks(A_el), ctx.env_tables()[0])
     A = A[:, :, :L, :L] * f_loc[:, :, :, None] * f_loc[:, :, None, :]
     diag = torch.diagonal(A, dim1=-2, dim2=-1).abs()
     shift = rel_shift * diag.amax(dim=2, keepdim=True)
@@ -93,19 +92,21 @@ def factor_local_matrices(A_loc):
 
 
 def invert_local_matrices(ctx, A_loc):
-    """f32 explicit inverses of (K, L, L) / (S, K, L, L) local matrices:
-    one (S*K, L, L) batch through :func:`.direct.batched_inv_f32` (kernel 1
-    on a CUDA tensor, its plain version on the CPU), checked per matrix by
-    the contraction probe. A failed probe raises, naming the (system,
-    shard) it failed on; the reference's library fallback is not carried
+    """f32 explicit inverses of (K_l, L, L) / (S, K_l, L, L) local
+    matrices: one (S*K_l, L, L) batch through
+    :func:`.direct.batched_inv_f32` (kernel 1 on a CUDA tensor, its plain
+    version on the CPU), checked per matrix by the contraction probe. A
+    failed probe raises on every rank at once (the count of failed
+    matrices is summed over ranks first), naming the (system, shard of this
+    process) it failed on; the reference's library fallback is not carried
     over."""
-    del ctx          # the shards are the batch axis: nothing to map over
     squeeze = A_loc.ndim == 3
     A4 = A_loc[None] if squeeze else A_loc
     S, K, L = A4.shape[0], A4.shape[1], A4.shape[2]
     inv = batched_inv_f32(A4.reshape(S * K, L, L),
                           batch_names=("system", "shard"),
-                          batch_shape=(S, K)).reshape(S, K, L, L)
+                          batch_shape=(S, K),
+                          reduce=ctx.allreduce_sum).reshape(S, K, L, L)
     return inv[0] if squeeze else inv
 
 
@@ -125,13 +126,14 @@ def make_ras_inv_precond(ctx, inv, restricted: bool = True):
     """M(r) from explicit local inverses: one halo exchange and one batched
     f32 matvec a shard (IEEE f32: the package keeps TF32 off).
 
-    ``inv``: (K, L, L) / (S, K, L, L) from :func:`invert_local_matrices`;
-    a (K, L, L) inverse serves every system of a batched residual."""
+    ``inv``: (K_l, L, L) / (S, K_l, L, L) from
+    :func:`invert_local_matrices`; a (K_l, L, L) inverse serves every
+    system of a batched residual."""
     iv = inv[None] if inv.ndim == 3 else inv                  # (Si, K, L, L)
 
     def precond(r):
         rb = r[None] if r.ndim == 1 else r
-        r_loc = ctx.local_with_halo(rb).to(F32)               # (S, K, L)
+        r_loc = ctx.local_with_halo(rb).to(F32)               # (S, K_l, L)
         ivb = iv.expand(r_loc.shape[0], *iv.shape[1:])
         z = torch.einsum("skij,skj->ski", ivb, r_loc)
         return _finish(ctx, z, r, restricted)
@@ -141,14 +143,14 @@ def make_ras_inv_precond(ctx, inv, restricted: bool = True):
 
 def make_ras_precond(ctx, lu_piv, restricted: bool = True):
     """M(r): one halo exchange + batched f32 triangular solves on the LU
-    factors of :func:`factor_local_matrices` ((K, L, L) for flat vectors
-    or (S, K, L, L) for batched stacks). Same restriction semantics as
+    factors of :func:`factor_local_matrices` ((K_l, L, L) for flat
+    vectors or (S, K_l, L, L) for batched stacks). Same restriction semantics as
     :func:`make_ras_inv_precond`."""
     lu, piv = lu_piv
 
     def precond(r):
         rb = r[None] if r.ndim == 1 else r
-        r_loc = ctx.local_with_halo(rb).to(F32)               # (S, K, L)
+        r_loc = ctx.local_with_halo(rb).to(F32)               # (S, K_l, L)
         S = r_loc.shape[0]
         lu_b = lu.expand(S, *lu.shape[-3:]) if lu.ndim == 3 else lu
         piv_b = piv.expand(S, *piv.shape[-2:]) if piv.ndim == 2 else piv
@@ -180,7 +182,15 @@ def build_p1_coarse_dist(ctx, op, free_np, dof_coords):
 
     ``free_np``: host (Kb,) bool mask (False = Dirichlet or padding).
     Returns ``(cinv (3K, 3K), W (Kb, 3K))``, f64 on ``ctx.device``, for
-    :func:`make_two_level_inv_precond`."""
+    :func:`make_two_level_inv_precond`. One process only: under ranks the
+    reference's multi-process driver keeps the Poisson operator on one
+    level (``pnp_tpu/workloads/distributed_pnp.py:224``), and so does the
+    port's."""
+    if ctx.layout.ranked and ctx.layout.world_size > 1:
+        raise NotImplementedError(
+            "build_p1_coarse_dist: no coarse level across ranks; the "
+            "multi-process driver runs one-level Schwarz, as the reference's "
+            "(pnp_tpu/workloads/distributed_pnp.py:224)")
     plan = ctx.plan
     K, B_N = plan.K, plan.B_N
     og = plan.owned_global                                    # (K, B_N)

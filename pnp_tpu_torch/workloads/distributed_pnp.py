@@ -7,10 +7,16 @@ but dof vectors live owner-partitioned over K shards
 (:mod:`..parallel.dist`), halo values move as packed per-pair buffers, and
 every linear solve is BiCGSTAB under distributed Schwarz
 (:mod:`..solvers.schwarz`): the counterpart of DUNE's NOVLP decomposition
-with SSOR-preconditioned ISTL solvers. The K shards are a leading batch
-axis of tensors on one device (``n_shards``, the reference's
-``device_mesh``); the exchange of :class:`..parallel.dist.DistContext` is
-the only place where shards read each other's data.
+with SSOR-preconditioned ISTL solvers. ``n_shards`` (the reference's
+``device_mesh``) is a shard count K, all K shards a leading batch axis of
+tensors in this process, or a :class:`..parallel.distributed.RankLayout`:
+K / P shards on each of P ranks, every rank running this same code on its
+own rows (the reference binary's ``mpirun -np P``). The exchange of
+:class:`..parallel.dist.DistContext` is the only place where shards read
+each other's data; under ranks every read across shards (the exchange,
+the Krylov and Newton sums, the probe's verdict, the non-finite guard, the
+gather for IO) is a collective that every rank reaches together, and only
+the coordinator (rank 0) writes outputs and checkpoints.
 
 State layout:
   * ``uphi``: flat (Kb,) owner-partitioned potential;
@@ -26,6 +32,8 @@ Newton assembly, per species factor, once for the Poisson operator).
 
 Poisson tiers: one-level Schwarz up to 8,192 dofs; above, two-level
 Schwarz with the per-shard linear coarse level, both built once a run.
+Over more than one rank always one-level, as the reference's
+multi-process driver (``pnp_tpu/workloads/distributed_pnp.py:224``).
 """
 
 from __future__ import annotations
@@ -47,18 +55,19 @@ from ..io.writers import CurrentWriter, write_dat, write_vtu
 from ..operators import kernels as KN
 from ..operators import volume as V
 from ..operators.common import interp_grad
+from ..parallel import distributed as PD
 from ..parallel.dist import DistContext, build_dist_context
 from ..postprocess.ionflux import build_ionflux_tables, calc_ion_flux
 from ..solvers import schwarz as SW
 from ..solvers.krylov import bicgstab
 from ..solvers.newton import NewtonParams, NewtonResult, newton_solve
 from ..timestepping.tableaux import Tableau, alexander2
-from ..utils.device import resolve_device
 from .common import make_scalar_context
 
 F64 = torch.float64
 
-#: above this many dofs the Poisson operator takes two-level Schwarz
+#: above this many dofs the Poisson operator takes two-level Schwarz (in
+#: one process)
 TWO_LEVEL_DOFS = 8192
 
 
@@ -93,7 +102,7 @@ class DistPnpSystem:
     uphi0: Any                   # (Kb,)
     uc0: Any                     # (2, Kb) stacked (c+, c-)
     species_step: Callable       # (uphi, uc) -> (uc', iters)
-    poisson_solve: Callable      # (uphi, uc) -> (uphi', iters)
+    poisson_solve: Callable      # (uphi, uc, maxiter=None) -> (uphi', iters, converged)
     fused_step: Callable         # (uphi, uc) -> (uphi', uc')
     scan_steps: Callable         # ((uphi, uc), n) -> (uphi', uc')
     dt: float
@@ -112,7 +121,8 @@ class DistPnpSystem:
     poisson_setup_seconds: float = 0.0
 
     def to_global(self, v) -> np.ndarray:
-        """Owner-partitioned (Kb,) -> global (ndof,) numpy (for IO)."""
+        """Owner-partitioned (Kb,) -> global (ndof,) numpy (for IO; under
+        ranks a collective, on every rank)."""
         return self.ctx.to_host_global(v)
 
 
@@ -144,7 +154,7 @@ def solve_pb_distributed(sys: Sysparams, space: FunctionSpace,
         op = ctx.make_constrained_operator(J_el, free_phi)
         res = bicgstab(op, r, torch.zeros_like(r),
                        SW.make_ras_inv_precond(ctx, inv), lin_red,
-                       sys.linearSolverIterations)
+                       sys.linearSolverIterations, reduce=ctx.allreduce_sum)
         return res.x, res.iterations
 
     params = NewtonParams(
@@ -156,23 +166,26 @@ def solve_pb_distributed(sys: Sysparams, space: FunctionSpace,
         reassemble_threshold=sys.newtonReassembleThreshold)
     u0 = torch.zeros(ctx.Kb, dtype=F64, device=ctx.device)
     return newton_solve(residual, None, u0, params, assemble_fn=assemble,
-                        assembled_solve_fn=solve)
+                        assembled_solve_fn=solve, reduce=ctx.allreduce_sum)
 
 
 def build_dist_pnp_system(
     sys: Sysparams,
     space: FunctionSpace,
-    n_shards: int,
+    n_shards,
     tableau: Optional[Tableau] = None,
     pb_field=None,
     device=None,
 ) -> DistPnpSystem:
-    """Build the owner-partitioned pipeline over ``n_shards`` shards on
-    ``device`` (default: the current CUDA device; raises without one).
+    """Build the owner-partitioned pipeline over ``n_shards``: a shard
+    count (all in this process, on ``device``, default the current CUDA
+    device; raises without one) or this rank's
+    :class:`..parallel.distributed.RankLayout` (on its device).
 
     ``pb_field``: an optional precomputed GLOBAL (ndof,) PB field; without
     it, phase A runs the distributed PB Newton."""
-    device = resolve_device(device)
+    layout = PD.as_layout(n_shards, device)
+    device = layout.device
     tab = tableau if tableau is not None else alexander2()
     dt = sys.tau
     pi = sys.pi
@@ -183,7 +196,7 @@ def build_dist_pnp_system(
         a_tab[i][i + 1] == a_tab[0][1] and b_tab[i][i + 1] == b_tab[0][1]
         for i in range(stages))
 
-    ctx = build_dist_context(space, n_shards, device)
+    ctx = build_dist_context(space, layout)
     pad = ctx.pad_mask_flat()
     part = lambda x: ctx.partition(np.asarray(x))
     put_vec = lambda x: f64(part(x), device)
@@ -221,6 +234,7 @@ def build_dist_pnp_system(
                  else pb_field)
         pb, pb_iters, pb_builds = put_vec(pb_np), 0, 0
     _sync(device)
+    PD.barrier(layout)
     pb_seconds = _time.perf_counter() - t0
 
     # ---- Phase B: initial fields from the PB solution --------------------
@@ -235,7 +249,7 @@ def build_dist_pnp_system(
     A_phi = V.poisson_jacobian_el(vt_p, sys.cylindrical, pi)
     op_phi = ctx.make_constrained_operator(A_phi, free_phi)
     t0 = _time.perf_counter()
-    if space.ndof > TWO_LEVEL_DOFS:
+    if space.ndof > TWO_LEVEL_DOFS and layout.world_size == 1:
         # two-level Schwarz for the constant Poisson operator: per-shard
         # inverses + the per-shard linear coarse level, built once a run
         # (the single-device block-RAS tier's linear coarse default)
@@ -291,7 +305,7 @@ def build_dist_pnp_system(
             M = M_shared if M_shared is not None else (
                 SW.make_schwarz_precond(ctx, A_el, free_pair))
             res = bicgstab(op, r, torch.zeros_like(r), M, 1e-5,
-                           sys.linearSolverIterations)
+                           sys.linearSolverIterations, reduce=ctx.allreduce_sum)
             levels.append(guess - res.x)
             # one iteration count for the batch: the loop runs until both
             # systems converge
@@ -320,24 +334,26 @@ def build_dist_pnp_system(
         return _species_stages(_build_K_pair(uphi_), uc_,
                                SW.make_ras_inv_precond(ctx, inv))
 
-    def _poisson_solve(uphi_, uc_):
-        """SLP apply at tolerance 1e-10 (reference md.hh:349-350)."""
+    def _poisson_solve(uphi_, uc_, maxiter=None):
+        """SLP apply at tolerance 1e-10 (reference md.hh:349-350), at most
+        ``maxiter`` (default linearSolverIterations) BiCGSTAB iterations."""
         r_el = V.poisson_residual_el(
             ctx.gather_elem(uphi_), ctx.gather_elem(uc_[0]),
             ctx.gather_elem(uc_[1]), vt_p, sys.l_b, sys.cylindrical, pi)
         r = torch.where(free_phi, ctx.scatter_elem(r_el) + flux_phi, 0.0)
         res = bicgstab(op_phi, r, torch.zeros_like(r), M_phi, 1e-10,
-                       sys.linearSolverIterations)
-        return uphi_ - res.x, res.iterations
+                       maxiter or sys.linearSolverIterations,
+                       reduce=ctx.allreduce_sum)
+        return uphi_ - res.x, res.iterations, res.converged
 
     def _fused_step(uphi_, uc_):
         uc_, _ = _species_step(uphi_, uc_)
-        uphi_, _ = _poisson_solve(uphi_, uc_)
+        uphi_ = _poisson_solve(uphi_, uc_)[0]
         return uphi_, uc_
 
     def _fused_step_reuse(inv, uphi_, uc_):
         uc2, _ = _species_step_reuse(inv, uphi_, uc_)
-        uphi2, _ = _poisson_solve(uphi_, uc2)
+        uphi2 = _poisson_solve(uphi_, uc2)[0]
         return uphi2, uc2
 
     def scan_steps(state, n_steps: int):
@@ -364,8 +380,9 @@ def build_dist_pnp_system(
 
 @dataclasses.dataclass
 class DistPnpRunResult:
-    """Phase-D result of the distributed driver; fields are GLOBAL numpy.
-    ``n_shards`` is the reference's ``n_devices``: the shard count K."""
+    """Phase-D result of the distributed driver; fields are GLOBAL numpy,
+    on every rank. ``n_shards`` is the reference's ``n_devices``: the shard
+    count K over all ranks; ``n_ranks`` the processes that held them."""
 
     phi: np.ndarray
     cp: np.ndarray
@@ -377,25 +394,32 @@ class DistPnpRunResult:
     current_history: list      # [(time, ip(n_surf,), im(n_surf,)), ...]
     space: FunctionSpace
     n_shards: int
-    # host-clock wall times (device synced): setup = phases A-C (and the
-    # presolve); per step: wall ms (the factor build included), the
-    # species BiCGSTAB iterations summed over the stages, the Poisson
-    # iterations (0 when the step skipped the re-solve), whether it built
-    # a species factor
+    n_ranks: int = 1
+    # host-clock wall times (device synced; under ranks each step starts
+    # and ends at a barrier, so every rank reads the same step): setup =
+    # phases A-C (and the presolve); per step: wall ms (the factor build
+    # included), the species BiCGSTAB iterations summed over the stages,
+    # the Poisson iterations (0 when the step skipped the re-solve),
+    # whether the Poisson solve converged before its cap (True when it was
+    # skipped), whether it built a species factor
     setup_seconds: float = 0.0
     pb_seconds: float = 0.0
     poisson_setup_seconds: float = 0.0
     step_ms: list = dataclasses.field(default_factory=list)
     species_iterations: list = dataclasses.field(default_factory=list)
     poisson_iterations: list = dataclasses.field(default_factory=list)
+    poisson_converged: list = dataclasses.field(default_factory=list)
     factor_rebuilt: list = dataclasses.field(default_factory=list)
     system: Any = None         # the DistPnpSystem the run stepped
+    # with ``record_states``: the global (phi, cp, cm) the first step
+    # started from, then after every step
+    states: Optional[list] = None
 
 
 def run_distributed_pnp_from_pb(
     sys: Sysparams,
     space: FunctionSpace,
-    n_shards: int,
+    n_shards,
     n_steps: Optional[int] = None,
     output_dir: Optional[str] = None,
     tableau: Optional[Tableau] = None,
@@ -407,32 +431,41 @@ def run_distributed_pnp_from_pb(
     pb_field=None,
     ras_refresh_every: int = 1,
     device=None,
+    record_states: bool = False,
 ) -> DistPnpRunResult:
     """The multi-shard production driver: phases A-D owner-partitioned over
-    ``n_shards`` shards on ``device`` (default: the current CUDA device;
-    raises without one).
+    ``n_shards``: a shard count K, all in this process on ``device``
+    (default: the current CUDA device; raises without one), or this rank's
+    :class:`..parallel.distributed.RankLayout` (every rank of the group
+    calls this function with the same arguments and its own layout).
 
     Mirrors ``run_instationary_pnp_from_pb`` (reference phase D,
     src/instationary_pnp_from_pb_md.hh:421-456): species step each tau,
     Poisson re-solve at potentialUpdateFreq cadence, ion flux + .dat/.vtu
     writers + current.dat every outputFreq, final Poisson solve. Output
     work gathers to host global vectors, so current.dat depends on the
-    trajectory alone, not on K. Checkpoints are in the single-device
-    global format: a run checkpointed under one K resumes under another.
+    trajectory alone, not on K or the ranks. Only the coordinator writes
+    outputs and checkpoints. Checkpoints are in the single-device global
+    format: a run checkpointed under one K, or under ranks, resumes under
+    another K, or in one process.
     ``ras_refresh_every`` > 1 rebuilds the species Schwarz factor on steps
     whose absolute index is a multiple of it (and on the first step run),
-    so a resumed run keeps the uninterrupted run's schedule."""
-    device = resolve_device(device)
+    so a resumed run keeps the uninterrupted run's schedule.
+    ``record_states`` keeps every step's global state in the result (a
+    step run again from it shows what that one step did)."""
+    layout = PD.as_layout(n_shards, device)
+    device = layout.device
     n_steps = sys.nSteps if n_steps is None else n_steps
     t_setup = _time.perf_counter()
-    system = build_dist_pnp_system(sys, space, n_shards, tableau=tableau,
-                                   pb_field=pb_field, device=device)
+    system = build_dist_pnp_system(sys, space, layout, tableau=tableau,
+                                   pb_field=pb_field)
     ctx = system.ctx
     uphi, uc = system.uphi0, system.uc0
     dt = system.dt
     if presolve_potential:
-        uphi, _ = system.poisson_solve(uphi, uc)
+        uphi = system.poisson_solve(uphi, uc)[0]
     _sync(device)
+    PD.barrier(layout)
     setup_seconds = _time.perf_counter() - t_setup
 
     ionflux_tables = build_ionflux_tables(space, sys.cylindrical, sys.pi,
@@ -452,20 +485,30 @@ def run_distributed_pnp_from_pb(
         uc_g = ctx.to_host_global(uc_)
         return ctx.to_host_global(uphi_), uc_g[0], uc_g[1]
 
+    def finite() -> bool:
+        """The state is finite on every rank (a collective under ranks)."""
+        bad = ~(torch.isfinite(uphi).all() & torch.isfinite(uc).all())
+        return float(ctx.allreduce_sum(bad.to(F64))) == 0.0
+
+    writes = output_dir and PD.is_coordinator()    # one writer under ranks
     current_writer = None
     output_counter = 0
     if output_dir:
+        fields0 = to_host(uphi, uc)
+    if writes:
         os.makedirs(output_dir, exist_ok=True)
         current_writer = CurrentWriter(os.path.join(output_dir, "current.dat"))
-        for name, vec in zip(("phi", "cp", "cm"), to_host(uphi, uc)):
+        for name, vec in zip(("phi", "cp", "cm"), fields0):
             write_dat(space, vec, os.path.join(output_dir, f"{name}.dat"))
 
+    states = [to_host(uphi, uc)] if record_states else None
     history, step_ms = [], []
-    species_its, poisson_its, rebuilt = [], [], []
+    species_its, poisson_its, converged, rebuilt = [], [], [], []
     use_reuse = ras_refresh_every > 1 and system.species_factor is not None
     factor = None
     try:
         for i in range(start_step, n_steps):
+            PD.barrier(layout)
             t_step = _time.perf_counter()
             fresh = True
             if use_reuse:
@@ -475,14 +518,18 @@ def run_distributed_pnp_from_pb(
                 uc, k = system.species_step_reuse(factor, uphi, uc)
             else:
                 uc, k = system.species_step(uphi, uc)
-            kp = 0
+            kp, ok = 0, True
             if i % sys.potentialUpdateFreq == 0:
-                uphi, kp = system.poisson_solve(uphi, uc)
+                uphi, kp, ok = system.poisson_solve(uphi, uc)
             _sync(device)
+            PD.barrier(layout)
             step_ms.append(1e3 * (_time.perf_counter() - t_step))
             species_its.append(k)
             poisson_its.append(kp)
+            converged.append(ok)
             rebuilt.append(fresh)
+            if record_states:
+                states.append(to_host(uphi, uc))
             time += dt
             if i % sys.outputFreq == 0:
                 output_counter += 1
@@ -493,7 +540,7 @@ def run_distributed_pnp_from_pb(
                     convention=flux_convention)
                 ip, im = _host(ip), _host(im)
                 history.append((time, ip, im))
-                if output_dir:
+                if writes:
                     fields = {"phi": phi_g, "cp": cp_g, "cm": cm_g}
                     for name, vec in fields.items():
                         write_dat(space, vec, os.path.join(
@@ -503,16 +550,20 @@ def run_distributed_pnp_from_pb(
                     current_writer.write(time, ip, im)
             if (checkpoint_path and checkpoint_freq
                     and (i + 1) % checkpoint_freq == 0):
-                save_checkpoint(checkpoint_path, sys, i + 1, time,
-                                *to_host(uphi, uc))
+                fields = to_host(uphi, uc)
+                if PD.is_coordinator():
+                    save_checkpoint(checkpoint_path, sys, i + 1, time,
+                                    *fields)
             # failure guard: detect a non-finite state, dump an emergency
-            # checkpoint, and abort with a diagnosable error
+            # checkpoint, and abort with a diagnosable error (every rank
+            # reads the same verdict and raises at the same step)
             if (i + 1) % 16 == 0 or i + 1 == n_steps:
-                if not bool(torch.isfinite(uphi).all()
-                            & torch.isfinite(uc).all()):
+                if not finite():
                     if checkpoint_path:
-                        save_checkpoint(checkpoint_path + ".emergency", sys,
-                                        i + 1, time, *to_host(uphi, uc))
+                        fields = to_host(uphi, uc)
+                        if PD.is_coordinator():
+                            save_checkpoint(checkpoint_path + ".emergency",
+                                            sys, i + 1, time, *fields)
                     raise FloatingPointError(
                         f"non-finite state at step {i + 1} (t={time:g}); "
                         "reduce tau or enable presolve_potential")
@@ -520,15 +571,16 @@ def run_distributed_pnp_from_pb(
         if current_writer:
             current_writer.close()
 
-    uphi, _ = system.poisson_solve(uphi, uc)   # final solve (ref :454)
+    uphi = system.poisson_solve(uphi, uc)[0]   # final solve (ref :454)
     phi_g, cp_g, cm_g = to_host(uphi, uc)
     return DistPnpRunResult(
         phi=phi_g, cp=cp_g, cm=cm_g, time=time, steps=n_steps,
         pb_newton_iterations=system.pb_newton_iterations,
         pb_jacobian_builds=system.pb_jacobian_builds,
         current_history=history, space=space, n_shards=ctx.K,
+        n_ranks=layout.world_size,
         setup_seconds=setup_seconds, pb_seconds=system.pb_seconds,
         poisson_setup_seconds=system.poisson_setup_seconds,
         step_ms=step_ms, species_iterations=species_its,
-        poisson_iterations=poisson_its, factor_rebuilt=rebuilt,
-        system=system)
+        poisson_iterations=poisson_its, poisson_converged=converged,
+        factor_rebuilt=rebuilt, system=system, states=states)

@@ -429,7 +429,7 @@ def test_gj_kernel_at_the_schwarz_shapes(cuda):
     _, piv_p = K._gj_core_plain(A)
     assert torch.equal(piv.long(), piv_p)
 
-    uphi, _ = system.poisson_solve(system.uphi0, system.uc0)
+    uphi = system.poisson_solve(system.uphi0, system.uc0)[0]
     n0 = K.launches["gj_inverse"]
     inv = system.species_factor(uphi)
     assert K.launches["gj_inverse"] == n0 + 1
@@ -451,3 +451,53 @@ def test_distributed_on_card_matches_cpu(cuda):
     for name in ("phi", "cp", "cm"):
         x, y = getattr(a, name), getattr(b, name)
         assert np.abs(x - y).max() <= 1e-9 * np.abs(y).max()
+
+
+def test_ranks_on_card_match_batch_axis(cuda, tmp_path):
+    """``[procs gloo]`` at a small size: 2 gloo ranks x 2 shards on the
+    card (``multiproc_smoke``, each rank on the current card) against the
+    batch-axis driver at K = 4 in this process, 2 presolved steps of the
+    one-wall case: one-level Schwarz, the same PB Newton count, fields and
+    currents within 1e-8 of max + 1, both kernels launched on every rank."""
+    import os
+    import subprocess
+    import sys
+
+    from pnp_tpu_torch.problems import one_wall_case
+    from pnp_tpu_torch.workloads.distributed_pnp import \
+        run_distributed_pnp_from_pb
+
+    out = tmp_path / "ranks.npz"
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run(
+        [sys.executable, "-m", "pnp_tpu_torch.tools.multiproc_smoke",
+         "--procs", "2", "--backend", "gloo", "--shards", "4", "--steps",
+         "2", "--presolve", "--timeout", "300", "--out", str(out)],
+        cwd=repo, capture_output=True, text=True, timeout=400)
+    assert run.returncode == 0, run.stdout[-4000:]
+    got = np.load(out)
+    sys_, space = one_wall_case(40, 4)
+    ref = run_distributed_pnp_from_pb(sys_, space, 4, n_steps=2,
+                                      presolve_potential=True, device=cuda)
+    assert str(got["poisson_tier"]) == ref.system.poisson_tier == "schwarz"
+    assert int(got["pb_newton_iterations"]) == ref.pb_newton_iterations
+    assert (got["launches"] > 0).all(), got["launches"]
+    scaled = lambda a, b: np.abs(a - b).max() / (np.abs(b).max() + 1.0)
+    for name in ("phi", "cp", "cm"):
+        assert scaled(got[name], getattr(ref, name)) <= 1e-8, name
+    for (_, ip, im), gp, gm in zip(ref.current_history, got["ip"],
+                                    got["im"]):
+        assert max(scaled(gp, ip), scaled(gm, im)) <= 1e-8
+
+
+def test_nccl_default_refuses_two_ranks_on_one_card(cuda, monkeypatch):
+    """``initialize_distributed(backend=None)`` picks NCCL only where each
+    rank has a card: more ranks than cards raise, naming gloo, before any
+    connection is tried."""
+    from pnp_tpu_torch.parallel import distributed as PD
+
+    monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(ValueError, match="gloo"):
+        PD.initialize_distributed("127.0.0.1:1", n, 0, backend=None)
+    assert PD.resolve_backend(None, torch.cuda.device_count()) == "nccl"
