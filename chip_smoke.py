@@ -137,6 +137,23 @@ result line:
     other and against the library call, to 1e-9; ``CG_AMG_SSOR`` (CG under
     the two-level aggregation AMG): the diffusion solve and ``solve_pb`` on
     the one-wall case, on the card against the CPU to 1e-9.
+14. the port's measurement and step entry points (``[bench]``): on the
+    card, every launch counted, ``bench.run_drybuild``,
+    ``bench.run_headline`` with 3 timed steps on the bench's L0
+    (``pore_case(80, 44)``, 3,105 nodes, the dense tier), ``bench.run_scaled``
+    on L1 (its refinement, 12,097 nodes), one call of ``entry.entry()``'s
+    step, ``entry.dryrun_multichip(8)`` with its ``dryrun_multichip_large``
+    on L1; each again with ``device="cpu"``, final states to 1e-9 (the
+    large dry run to 1e-8: the rounding of its f32 Schwarz inverses alone
+    moves it by up to 3.0e-9), the scaled level's iteration counts within
+    one, no result value null or non-finite; then kernel 1 on L0's (2,
+    3105, 3105) stage batch at the presolved potential and kernel 2 at E =
+    5,888.
+
+``python3 chip_smoke.py --level-kernels L`` (L >= 1) checks and times both
+kernels at the shapes the bench's level L gives them (phase 9's checks on
+that level's system); ``python3 -m pnp_tpu_torch.bench`` runs the ladder
+itself.
 
 The next-to-last line is ``{"kernels": [...]}``: per kernel its launches
 in phase 6 (in phase 8 as ``launches_block_ras``, in phase 8b as
@@ -157,7 +174,9 @@ under ``procs_species_shape``, ``procs_pb_shape`` and (kernel 2)
 ``procs_shape``; ``launches_very_large``, ``launches_mid_species``,
 ``launches_workloads``, ``launches_dist``, ``launches_p2``,
 ``launches_procs_gloo`` (a list, by rank) and ``launches_procs_nccl``
-count those paths' runs. The last line is ``{"ok": true, "device": {...}}``.
+count those paths' runs; ``[bench]``'s L0 shapes are under ``bench_shape``
+and its launches under ``launches_bench``. The last line is ``{"ok":
+true, "device": {...}}``.
 Needs a CUDA device and ``nvcc``; writes the runs' outputs under
 ``chip_smoke_out/`` (gitignored).
 """
@@ -270,6 +289,21 @@ ALLREDUCE_REPS = 50
 # the P2 production run on the dense tier (2,709 dofs, 1,280 triangles)
 P2_CASE = (64, 10)
 P2_STEPS = 3
+# the bench's ladder (pnp_tpu_torch/bench.py): L0 is pore_case(80, 44),
+# 3,105 nodes and 5,888 triangles (the dense tier), L1 its refinement,
+# 12,097 nodes (block-RAS, the mid-size Poisson inverse); the multi-shard
+# dry run's shard count
+BENCH_SHAPE = (3105, 5888)
+BENCH_HEADLINE_MEAS = 3
+BENCH_SCALED = (1, 2)                     # levels, timed steps
+BENCH_SHARDS = 8
+# the large dry run (L1, 8 shards, two-level Schwarz, a zero PB field): its
+# Krylov solves stop at their tolerances under f32 local inverses, and the
+# inverses' rounding alone moves its state by 2.3e-9 and 3.0e-9 relative
+# (measured on the CPU with the plain version at two other panel widths;
+# the L0 dry run moves by 0.8e-10 and 2.1e-10), so the card is held to it
+# at the two Poisson tiers' bound
+BENCH_DIST_LARGE_TOL = TIER_REL_TOL
 
 
 class PhaseError(RuntimeError):
@@ -1549,6 +1583,157 @@ def fields_rel(torch, a, b):
     return max(errs), max(cur)
 
 
+def states_rel(a, b) -> float:
+    """Largest relative error over the tensors of two states (tuples of
+    tensors, nested or not), the second on the CPU."""
+    if isinstance(a, (tuple, list)):
+        return max(states_rel(x, y) for x, y in zip(a, b))
+    return rel_err(a.cpu(), b)
+
+
+def bench_calls(B, EN, d) -> dict:
+    """The calls of ``[bench]`` on device ``d``: each one's result (where
+    it has one) and final state."""
+    out = {"drybuild": B.run_drybuild(device=d)}
+    out["headline_out"], out["headline"] = B.run_headline(
+        BENCH_HEADLINE_MEAS, device=d)
+    out["scaled_out"], out["scaled"] = B.run_scaled(*BENCH_SCALED, device=d)
+    fn, args = EN.entry(device=d)
+    out["entry"] = fn(*args)
+    dry = EN.dryrun_multichip(BENCH_SHARDS, device=d)
+    out["dryrun_out"] = dry
+    out["dryrun"], out["dryrun_large"] = dry["state"], dry["large"]["state"]
+    return out
+
+
+def bench_phase(torch, K, W, direct, make_scalar_context, dev):
+    """``[bench]``: the port's measurement and step entry points
+    (``pnp_tpu_torch/bench.py``, ``pnp_tpu_torch/entry.py``) on the card,
+    every launch counted: ``run_drybuild``, ``run_headline`` with
+    BENCH_HEADLINE_MEAS timed steps on L0, ``run_scaled`` on L1, one call
+    of ``entry()``'s step, ``dryrun_multichip`` with BENCH_SHARDS shards
+    (and its ``dryrun_multichip_large`` on L1); then each again with
+    ``device="cpu"``, final states to SLICE_REL_TOL (the large dry run to
+    BENCH_DIST_LARGE_TOL), the scaled level's
+    iteration counts within one, the dry run's plan sizes equal, and no
+    value of the results null or non-finite. Then both kernels at L0's
+    shapes: kernel 1 on the (2, 3105, 3105) stage batch at the presolved
+    potential, kernel 2 at E = 5,888. Returns their entries and the
+    launch counts."""
+    from pnp_tpu_torch import bench as B
+    from pnp_tpu_torch import entry as EN
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    K.reset_launch_counts()
+    direct.probe_failures["count"] = 0
+    t0 = time.perf_counter()
+    gpu = bench_calls(B, EN, dev)
+    torch.cuda.synchronize(dev)
+    counts = dict(K.launches)
+    failures = direct.probe_failures["count"]
+    card_s = time.perf_counter() - t0
+    head, scaled = gpu["headline_out"], gpu["scaled_out"]
+    dry = gpu["dryrun_out"]
+    print(f"[bench] headline (L0, {BENCH_HEADLINE_MEAS} steps): "
+          f"{json.dumps(head)}")
+    print(f"[bench] run_scaled{BENCH_SCALED}: {json.dumps(scaled)}")
+    print(f"[bench] card calls {card_s:.1f} s, launches {counts}, probe "
+          f"failures {failures}", flush=True)
+    check((head["nodes"], head["triangles"]) == BENCH_SHAPE
+          and head["poisson_tier"] == "dense", f"headline case {head}")
+    check(scaled["nodes"] == RAS_SHAPE[0]
+          and scaled["poisson_tier"] == "inverse", f"scaled case {scaled}")
+    bad = B.null_or_nonfinite({"headline": head, "scaled": scaled})
+    check(not bad, f"null or non-finite values in the results: {bad}")
+    check(failures == 0, f"{failures} contraction-probe failures")
+    for name, n in counts.items():
+        check(n > 0, f"kernel {name} was not launched on the bench's path")
+
+    t0 = time.perf_counter()
+    cpu = bench_calls(B, EN, "cpu")
+    print(f"[bench] the same calls on the CPU {time.perf_counter() - t0:.1f} "
+          "s", flush=True)
+    tols = dict.fromkeys(("drybuild", "headline", "scaled", "entry",
+                          "dryrun"), SLICE_REL_TOL)
+    tols["dryrun_large"] = BENCH_DIST_LARGE_TOL
+    for name, tol in tols.items():
+        err = states_rel(gpu[name], cpu[name])
+        print(f"[bench] {name}: final state CUDA vs CPU rel err {err:.3e} "
+              f"(tol {tol:g})")
+        check(err <= tol, f"[bench] {name} CUDA vs CPU")
+    its = [(scaled["phases"][k], cpu["scaled_out"]["phases"][k])
+           for k in ("species_stage_iters", "poisson_iters")]
+    print(f"[bench] scaled iterations (card, CPU): species {its[0]}, "
+          f"Poisson {its[1]}")
+    check(all(abs(a - b) <= 1 for a, b in its), "scaled iteration counts")
+    plan = ("Kb", "B_N", "B_H", "pb_newton")
+    check(all(dry[k] == cpu["dryrun_out"][k] for k in plan),
+          f"dry run plans differ: {dry} {cpu['dryrun_out']}")
+    del gpu, cpu
+
+    # both kernels at L0's shapes, on inputs from L0's system
+    sys0, space0 = B._load(0)
+    system = W.build_pnp_system(sys0, space0, device=dev)
+    uphi1, _ = system.poisson_solve(system.uphi0, system.ucp0, system.ucm0)
+    A32 = system.species_dense_f32(uphi1)
+    N = BENCH_SHAPE[0]
+    check(tuple(A32.shape) == (2, N, N), f"L0 stage batch {A32.shape}")
+    gj = gj_shape_check(torch, K, direct.contraction_ok, A32,
+                        "bench L0 species stage batch", 3, 2)
+    del A32
+    ctx = make_scalar_context(sys0, space0, component=0, quad_order=3,
+                              device=dev)
+    vt = ctx.vt
+    args = (system.pb[vt.dofmap], vt.shape, vt.gradphi, vt.qw, vt.qy,
+            sys0.l_b, sys0.c0, sys0.cylindrical, sys0.pi)
+    pb = pb_check(torch, K, args, BENCH_SHAPE[1])
+    return {"gj": gj, "pb": pb}, counts
+
+
+def level_kernels(argv) -> int:
+    """``chip_smoke.py --level-kernels L`` (L >= 1): both kernels at the
+    shapes the bench's level L gives them, on inputs from that level's
+    system built on the card (phase A included): kernel 1 on the species
+    RAS and PB Jacobian local batches (and, on the mid-size tier, the
+    Poisson matrix), kernel 2 at the level's E, each against its plain
+    version and timed (:func:`ras_kernel_checks`). Prints the entries as
+    one JSON line last."""
+    import torch
+
+    levels = int(argv[0])
+    check(levels >= 1, "--level-kernels takes a refined level (L0: [bench])")
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script needs one GPU",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    from pnp_tpu_torch import bench as B
+    from pnp_tpu_torch.fem import assembly as FA
+    from pnp_tpu_torch.operators import kernels as K
+    from pnp_tpu_torch.operators import volume as V
+    from pnp_tpu_torch.solvers import block_ras as BR
+    from pnp_tpu_torch.solvers import direct
+    from pnp_tpu_torch.workloads import instationary_pnp_from_pb as W
+    from pnp_tpu_torch.workloads.common import make_scalar_context
+
+    dev = torch.device("cuda:0")
+    print("[card] nvidia-smi name, power.limit:")
+    print(nvidia_smi(), flush=True)
+    K.build()
+    sys_l, space_l = B._load(levels)
+    system = W.build_pnp_system(sys_l, space_l, device=dev)
+    bc = system.block_context
+    print(f"[level kernels] L{levels}: {space_l.ndof} nodes, "
+          f"{space_l.mesh.num_tris} triangles, K {bc.K} L {bc.L}, Poisson "
+          f"tier {system.poisson_tier}, phase A {system.pb_seconds:.2f} s",
+          flush=True)
+    out = ras_kernel_checks(torch, K, direct, FA, V, BR, make_scalar_context,
+                            system, dev, tag=f"L{levels} ")
+    print(json.dumps({"level_kernels": levels, **out}))
+    return 0
+
+
 def very_large_main(torch, K, W, direct, FA, V, BR, make_scalar_context,
                     pore_case, dev):
     """Phase 11: the very-large Poisson tier at full size, then both
@@ -2134,6 +2319,8 @@ def main() -> int:
           flush=True)
     work_k, work_counts = workloads_phase(torch, K, W, make_scalar_context,
                                           pore_case, dev)
+    bench_k, bench_counts = bench_phase(torch, K, W, direct,
+                                        make_scalar_context, dev)
     print(f"[done] {time.perf_counter() - t_all:.1f} s")
     # once more, for a reader who sees the end of the output only
     print("[card] nvidia-smi name, power.limit:")
@@ -2166,7 +2353,9 @@ def main() -> int:
          "launches_procs_gloo": procs_counts["gj_inverse"],
          "launches_procs_nccl": nccl_counts["gj_inverse"],
          "procs_species_shape": procs_k["gj_species"],
-         "procs_pb_shape": procs_k["gj_pb"]},
+         "procs_pb_shape": procs_k["gj_pb"],
+         "launches_bench": bench_counts["gj_inverse"],
+         "bench_shape": bench_k["gj"]},
         {"name": "pb_residual_jacobian", "route": "cuda",
          "source": "pnp_tpu_torch/csrc/pb_element.cu",
          "replaces": "pnp_tpu/operators/pallas_kernels.py:105",
@@ -2186,7 +2375,9 @@ def main() -> int:
          "p2_shape": p2_k,
          "launches_procs_gloo": procs_counts["pb_residual_jacobian"],
          "launches_procs_nccl": nccl_counts["pb_residual_jacobian"],
-         "procs_shape": procs_k["pb"]},
+         "procs_shape": procs_k["pb"],
+         "launches_bench": bench_counts["pb_residual_jacobian"],
+         "bench_shape": bench_k["pb"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -2199,6 +2390,8 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["--procs-worker"]:
             sys.exit(procs_worker(sys.argv[2:]))
+        if sys.argv[1:2] == ["--level-kernels"]:
+            sys.exit(level_kernels(sys.argv[2:]))
         sys.exit(main())
     except Exception:  # any failed phase: report it and print no result
         traceback.print_exc()

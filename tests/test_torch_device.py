@@ -6,9 +6,11 @@ tests/test_torch_cuda.py."""
 import pytest
 import torch
 
+from pnp_tpu_torch import bench, entry
 from pnp_tpu_torch.problems import one_wall_case, pore_case
 from pnp_tpu_torch.utils.device import resolve_device
 from pnp_tpu_torch.workloads.common import make_scalar_context
+from pnp_tpu_torch.workloads import distributed_pnp as TD
 from pnp_tpu_torch.workloads.distributed_pnp import (
     build_dist_pnp_system, run_distributed_pnp_from_pb)
 from pnp_tpu_torch.workloads.instationary_pnp_from_pb import (
@@ -20,6 +22,17 @@ from pnp_tpu_torch.workloads.stationary_diffusion import (
 from pnp_tpu_torch.workloads.stationary_pnp import run_stationary_pnp
 
 torch.set_num_threads(1)
+
+
+def _dryrun(s, sp, **kw):
+    """The multi-shard dry run on the (12, 7) pore, its large run forced
+    onto two-level Schwarz at that size."""
+    saved, TD.TWO_LEVEL_DOFS = TD.TWO_LEVEL_DOFS, 0
+    try:
+        return entry.dryrun_multichip(2, base=(12, 7), **kw)
+    finally:
+        TD.TWO_LEVEL_DOFS = saved
+
 
 ENTRY_POINTS = {
     "run_instationary_pnp_from_pb":
@@ -46,6 +59,13 @@ ENTRY_POINTS = {
                                                         **kw),
     "build_dist_pnp_system":
         lambda s, sp, **kw: build_dist_pnp_system(s, sp, 2, **kw),
+    # the bench and the step entry, on their case at the (12, 7) base
+    "bench.run_headline":
+        lambda s, sp, **kw: bench.run_headline(1, base=(12, 7), **kw),
+    "bench.run_scaled":
+        lambda s, sp, **kw: bench.run_scaled(1, 1, base=(12, 7), **kw),
+    "entry.entry": lambda s, sp, **kw: entry.entry(base=(12, 7), **kw),
+    "entry.dryrun_multichip": _dryrun,
 }
 
 
@@ -73,7 +93,11 @@ def test_entry_point_runs_on_cpu_when_asked(no_cuda, name):
              "run_stationary_pnp": lambda r: r.u,
              "run_instationary_pnp": lambda r: r.phi,
              "run_distributed_pnp_from_pb": lambda r: r.system.uc0,
-             "build_dist_pnp_system": lambda r: r.pb}[name](out)
+             "build_dist_pnp_system": lambda r: r.pb,
+             "bench.run_headline": lambda r: r[1][0],
+             "bench.run_scaled": lambda r: r[1][0],
+             "entry.entry": lambda r: r[1][0],
+             "entry.dryrun_multichip": lambda r: r["state"][0]}[name](out)
     assert field.device.type == "cpu" and bool(field.isfinite().all())
 
 
