@@ -115,6 +115,27 @@ result line:
     ``[procs nccl]``: one rank over NCCL (every collective a copy), 2
     steps from that PB field, against the batch-axis driver, both under
     PyTorch's deterministic algorithms, to 1e-12;
+10d. element sharding (``[sharded]``): ``run_instationary_pnp_from_pb``
+    with ``device_mesh=8`` on ``pore_case(160, 88)``: the element tables
+    in 8 shards on the card, dof vectors whole, each scatter's partials
+    summed over the shard axis; no dense tier and no block-RAS on sharded
+    tables, so the Poisson re-solve is BiCGSTAB under Chebyshev-Jacobi(3)
+    and the species stages the species Krylov path; phase A unsharded
+    (kernel 1 on the PB Jacobian's (48, 369, 369) RAS batch, kernel 2 at E
+    = 23,552); 4 presolved steps, every launch counted and kernel 1's
+    inputs kept as the run gave them; held against K = 1 on the card and,
+    on ``pore_case(80, 44)`` (2 steps), against the CPU, to SHARD_TOL of
+    max + 1; step ms, iteration counts, peak GiB and one traced step's
+    busy share (``chip_smoke_out/sharded/trace_step/``); kernel 1 on the
+    kept batch (equal pivot rows) and kernel 2 at E = 23,552 against
+    their plain versions. ``[sharded procs]``: the same driver as 2 gloo
+    ranks x 4 shards on the one card (each rank its own phase A, rank 0's
+    PB field replicated; every scatter one ``all_reduce``), 2 steps: the
+    ranks' final fields bitwise equal, held against one process to
+    SHARD_TOL, the all-reduces a BiCGSTAB iteration and one gloo
+    all-reduce's ms. ``[sharded nccl]``: one NCCL rank x 8 shards, 2
+    steps, bitwise equal to one process (both under PyTorch's
+    deterministic algorithms);
 12. the mid-size species tier (``[mid-species main]``): ``pore_case(160,
     88)`` with ``species_inv_threshold=16384``, 8 presolved steps, a
     refresh every 4 (kernel 1 at (2, 12097, 12097) each refresh): factor
@@ -175,7 +196,9 @@ under ``procs_species_shape``, ``procs_pb_shape`` and (kernel 2)
 ``launches_workloads``, ``launches_dist``, ``launches_p2``,
 ``launches_procs_gloo`` (a list, by rank) and ``launches_procs_nccl``
 count those paths' runs; ``[bench]``'s L0 shapes are under ``bench_shape``
-and its launches under ``launches_bench``. The last line is ``{"ok":
+and its launches under ``launches_bench``; ``[sharded]``'s under
+``sharded_shape`` and ``launches_sharded``, with
+``launches_sharded_procs`` (by rank) and ``launches_sharded_nccl``. The last line is ``{"ok":
 true, "device": {...}}``.
 Needs a CUDA device and ``nvcc``; writes the runs' outputs under
 ``chip_smoke_out/`` (gitignored).
@@ -286,6 +309,25 @@ PROCS_TIMEOUT_S = 600
 PROCS_TRACE_MAXITER = 150
 EXCHANGE_REPS = 20
 ALLREDUCE_REPS = 50
+# element sharding (``[sharded]``): the single-device driver on K element
+# shards of pore_case(160, 88) (dof vectors whole, each scatter's partials
+# summed), BCGS_SSORk as BiCGSTAB under Chebyshev-Jacobi(3); K = 8 held
+# against K = 1 on the card, the card against the CPU (on pore_case(80,
+# 44)) and the ranks against one process, each to SHARD_TOL of max + 1.
+# The runs differ by the order of their sums alone, but each Poisson
+# re-solve stops at a relative residual of 1e-10 after 84-190 BiCGSTAB
+# iterations whose count moves by up to 14 with that order: on the CPU
+# (no atomics) K = 8 and K = 1 differ by 2.9e-9 of max + 1 in phi at
+# pore_case(80, 44) and by 1.6e-8 in the currents at pore_case(160, 88);
+# on an H100 the ranks and one process by 3.1e-8. 1e-6 stands 30 times
+# above that and far below what a scatter left unreduced or summed twice
+# moves (a factor near K: order one)
+SHARD_K = DIST_K
+SHARD_STEPS = 4
+SHARD_TOL = 1e-6
+SHARD_PARITY_CASE = (80, 44)
+SHARD_PARITY_STEPS = 2
+SHARD_PROCS_STEPS = 2
 # the P2 production run on the dense tier (2,709 dofs, 1,280 triangles)
 P2_CASE = (64, 10)
 P2_STEPS = 3
@@ -1278,8 +1320,10 @@ def procs_worker(argv) -> int:
     --procs-worker`` with ``multiproc_smoke``'s flags, launched by
     :func:`procs_launch`): the run, and with ``--measure`` the gloo check
     before it and, after it, the collectives' times, a profiled reuse step
-    and rank 0's kernel checks; the coordinator writes it all to
-    ``--out``."""
+    and rank 0's kernel checks; with ``--task sharded`` (``[sharded
+    procs]``, ``[sharded nccl]``) the sharded driver instead and, with
+    ``--measure``, :func:`sharded_collectives`. The coordinator writes it
+    all to ``--out``."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -1302,21 +1346,29 @@ def procs_worker(argv) -> int:
     dev = layout.device
     rank = layout.rank
     extra = {}
+    sharded = args.task == "sharded"
     try:
-        if args.measure:
-            gloo_cuda_check(torch, dist, dev, rank)
-        res, counts = MS.run(args, layout, record_states=True)
-        arrays = MS.result_arrays(res, counts, layout)
-        extra["states"] = np.array(res.states)
-        if args.measure:
-            extra.update(procs_collectives(torch, PD, res, dev))
-            inputs = procs_kernel_inputs(torch, K, SW, res)
-        PD.barrier(layout)
-        if args.measure:
-            extra.update(procs_trace(torch, PD, maybe_trace, res, dev))
+        if sharded:
+            res, counts = MS.run_sharded(args, layout)
+            arrays = MS.sharded_arrays(res, counts, layout)
+            if args.measure:
+                extra.update(sharded_collectives(torch, dist, res, layout))
+            PD.barrier(layout)
+        else:
+            if args.measure:
+                gloo_cuda_check(torch, dist, dev, rank)
+            res, counts = MS.run(args, layout, record_states=True)
+            arrays = MS.result_arrays(res, counts, layout)
+            extra["states"] = np.array(res.states)
+            if args.measure:
+                extra.update(procs_collectives(torch, PD, res, dev))
+                inputs = procs_kernel_inputs(torch, K, SW, res)
+            PD.barrier(layout)
+            if args.measure:
+                extra.update(procs_trace(torch, PD, maybe_trace, res, dev))
     finally:
         dist.destroy_process_group()
-    if args.measure and rank == 0:
+    if args.measure and rank == 0 and not sharded:
         ks = procs_kernels(torch, K, direct, *inputs, res.system.ctx.E_flat)
         extra["kernels_json"] = json.dumps(ks)
     if args.out and rank == 0:
@@ -1533,6 +1585,221 @@ def procs_nccl(torch, TD, MS, pore_case, dev):
     check(launches["gj_inverse"] > 0, "kernel gj_inverse was not launched")
     check(err <= PROCS_NCCL_TOL, "[procs nccl] against the batch-axis driver")
     return launches
+
+
+def sharded_main(torch, K, W, direct, make_scalar_context, maybe_trace,
+                 pore_case, dev):
+    """``[sharded]``: ``run_instationary_pnp_from_pb`` with ``device_mesh``
+    SHARD_K on ``pore_case(160, 88)``: element tables split into SHARD_K
+    shards on the card, dof vectors whole, every scatter's partials summed
+    over the shard axis; phase A unsharded (kernel 2, and kernel 1 on the
+    PB Jacobian's RAS batch); the Poisson re-solve BiCGSTAB under
+    Chebyshev-Jacobi(3), the species stages the species Krylov path;
+    SHARD_STEPS presolved steps, every launch counted and kernel 1's inputs
+    kept as the run gave them. Held against K = 1 on the card and, on
+    ``pore_case(80, 44)``, against the CPU, to SHARD_TOL; one traced step
+    on the final state; then kernel 1 on the kept inputs and kernel 2 at E
+    = 23,552 against their plain versions. Returns the kernels' entries and
+    the launches."""
+    sys_r, space_r = pore_case(*RAS_CASE)
+    nodes, tris = space_r.ndof, space_r.mesh.num_tris
+    kept, gj = {}, K.gj_inverse
+
+    def keep(A, *a, **kw):
+        kept[tuple(A.shape)] = (A.detach().clone(), a, kw)
+        return gj(A, *a, **kw)
+
+    run = lambda k, d, case=RAS_CASE, steps=SHARD_STEPS: \
+        W.run_instationary_pnp_from_pb(
+            *pore_case(*case), n_steps=steps, presolve_potential=True,
+            device_mesh=k, device=d)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_launch_counts()
+    direct.probe_failures["count"] = 0
+    K.gj_inverse = keep
+    try:
+        res = run(SHARD_K, dev)
+    finally:
+        K.gj_inverse = gj
+    counts = dict(K.launches)
+    failures = direct.probe_failures["count"]
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    one = run(1, dev)
+    err = dist_fields_err(res, one, scaled_err)
+    per = [scaled_err(getattr(res, n).cpu(), getattr(one, n).cpu())
+           for n in ("phi", "cp", "cm")]
+    print(f"[sharded] pore_case{RAS_CASE}: {nodes} dofs, {tris} triangles "
+          f"in {SHARD_K} element shards on the card "
+          f"({res.system.poisson_tier} Poisson tier, {sys_r.linearSolver}): "
+          f"phase A {res.pb_seconds:.3f} s ({res.pb_newton_iterations} "
+          f"Newton iterations), setup {res.setup_seconds:.3f} s, peak "
+          f"{peak:.2f} GiB")
+    print("[sharded] step ms " + " ".join(f"{t:.1f}" for t in res.step_ms)
+          + f"; species BiCGSTAB its {res.species_iterations}, Poisson "
+          f"BiCGSTAB its {res.poisson_iterations}; launches {counts}, probe "
+          f"failures {failures}")
+    print(f"[sharded] K = 1 on the card: step ms "
+          + " ".join(f"{t:.1f}" for t in one.step_ms)
+          + f", species its {one.species_iterations}, Poisson its "
+          f"{one.poisson_iterations}; K = {SHARD_K} against it: fields and "
+          f"currents {err:.3e} of max + 1 (tol {SHARD_TOL:g}; phi, cp, cm "
+          + " ".join(f"{e:.1e}" for e in per) + ")", flush=True)
+    check(res.system.poisson_tier == "krylov", "the sharded Poisson tier")
+    check(all(tuple(v.shape) == (nodes,) and bool(torch.isfinite(v).all())
+              for v in (res.phi, res.cp, res.cm)), "non-finite or misshapen "
+          "final state")
+    check(failures == 0, f"{failures} contraction-probe failures")
+    for name, n in counts.items():
+        check(n > 0, f"kernel {name} was not launched on the sharded path")
+    check(err <= SHARD_TOL, "[sharded] K = 8 against K = 1")
+
+    gpu, cpu = (run(SHARD_K, d, SHARD_PARITY_CASE, SHARD_PARITY_STEPS)
+                for d in (dev, "cpu"))
+    err = dist_fields_err(gpu, cpu, scaled_err)
+    print(f"[sharded] pore_case{SHARD_PARITY_CASE}, K = {SHARD_K}, "
+          f"{SHARD_PARITY_STEPS} steps, CUDA vs CPU: fields and currents "
+          f"{err:.3e} of max + 1 (tol {SHARD_TOL:g}); Poisson its "
+          f"{gpu.poisson_iterations} ({cpu.poisson_iterations})", flush=True)
+    check(err <= SHARD_TOL, "[sharded] CUDA vs CPU")
+    del gpu, cpu, one
+
+    system = res.system
+    with maybe_trace(os.path.join(REPO, "chip_smoke_out", "sharded",
+                                  "trace_step")) as prof:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        cp, cm, k = system.species_step(res.phi, res.cp, res.cm)
+        _, kp = system.poisson_solve(res.phi, cp, cm)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    trace_summary(torch, prof, wall, f"one ({k} species its, {kp} Poisson "
+                  "its)", tag="sharded trace")
+
+    check(sorted(kept) == [(RAS_SHAPE[2], RAS_SHAPE[3], RAS_SHAPE[3])],
+          f"kernel 1's shapes on the sharded path {sorted(kept)}")
+    A, a, kw = kept.popitem()[1]
+    same = pivot_rows_equal(torch, K, A)
+    print(f"[sharded kernels] PB Jacobian RAS batch {tuple(A.shape)} as the "
+          f"run gave it: pivot rows equal the plain version's {same}")
+    check(same and not a and not kw, "kernel 1's pivots or arguments on "
+          "the sharded run's batch")
+    out = {"gj": gj_shape_check(torch, K, direct.contraction_ok, A,
+                                "sharded run's PB Jacobian RAS batch", 5, 3)}
+    del A
+    ctx = make_scalar_context(sys_r, space_r, component=0, quad_order=3,
+                              device=dev)
+    vt = ctx.vt
+    args = (system.pb[vt.dofmap], vt.shape, vt.gradphi, vt.qw, vt.qy,
+            sys_r.l_b, sys_r.c0, sys_r.cylindrical, sys_r.pi)
+    out["pb"] = pb_check(torch, K, args, tris)
+    return out, counts
+
+
+def sharded_collectives(torch, dist, res, layout) -> dict:
+    """The rank path of element sharding: the all-reduces in one Poisson
+    solve (from the run's initial state: the presolve's work) and its
+    BiCGSTAB iterations, and the host-clock ms of one ``all_reduce`` of a
+    dof vector, both ranks in step."""
+    system = res.system
+    n, reduce = [0], dist.all_reduce
+
+    def counted(*a, **kw):
+        n[0] += 1
+        return reduce(*a, **kw)
+
+    dist.all_reduce = counted
+    try:
+        _, k = system.poisson_solve(system.uphi0, system.ucp0, system.ucm0)
+    finally:
+        dist.all_reduce = reduce
+    v = torch.ones(system.space.ndof, dtype=torch.float64,
+                   device=layout.device)
+    dist.all_reduce(v)
+    torch.cuda.synchronize(layout.device)
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(ALLREDUCE_REPS):
+        dist.all_reduce(v)
+    torch.cuda.synchronize(layout.device)
+    return {"solve_allreduces": n[0], "solve_iterations": k,
+            "allreduce_ms": 1e3 * (time.perf_counter() - t0)
+            / ALLREDUCE_REPS}
+
+
+def sharded_procs(torch, W, MS, pore_case, dev):
+    """``[sharded procs]``: the sharded driver as PROCS_RANKS gloo ranks x
+    SHARD_K / PROCS_RANKS shards on the one card (each rank its own phase
+    A, rank 0's PB field replicated), SHARD_PROCS_STEPS presolved steps:
+    the ranks' final fields bitwise equal, held against one process at K =
+    SHARD_K to SHARD_TOL of max + 1; the all-reduces a BiCGSTAB iteration
+    and a gloo all-reduce's ms. ``[sharded nccl]``: one NCCL rank x
+    SHARD_K shards, both it and the one-process run under PyTorch's
+    deterministic algorithms, bitwise equal. Returns the launches (by
+    rank) of both."""
+    import numpy as np
+
+    sys_r, space_r = pore_case(*RAS_CASE)
+    one = lambda: W.run_instationary_pnp_from_pb(
+        sys_r, space_r, n_steps=SHARD_PROCS_STEPS, presolve_potential=True,
+        device_mesh=SHARD_K, device=dev)
+    r = procs_launch(MS, "sharded_gloo", PROCS_RANKS, [
+        "--task", "sharded", "--backend", "gloo", "--steps",
+        str(SHARD_PROCS_STEPS), "--measure", "--output-dir",
+        os.path.join(REPO, "chip_smoke_out", "procs", "sharded_out")])
+    ref = one()
+    err = dist_fields_err(npz_run(r), ref, scaled_err)
+    names = [str(n) for n in r["kernel_names"]]
+    launches = {n: [int(v) for v in r["launches"][:, i]]
+                for i, n in enumerate(names)}
+    fields = r["rank_fields"]
+    same = all(np.array_equal(fields[0], f) for f in fields[1:])
+    n, k = int(r["solve_allreduces"]), int(r["solve_iterations"])
+    print(f"[sharded procs] {PROCS_RANKS} gloo ranks x "
+          f"{SHARD_K // PROCS_RANKS} shards: Poisson tier "
+          f"{r['poisson_tier']}, step ms "
+          + " ".join(f"{float(t):.1f}" for t in r["step_ms"])
+          + " (one process: " + " ".join(f"{t:.1f}" for t in ref.step_ms)
+          + f"), species its {r['species_iterations'].tolist()} "
+          f"({ref.species_iterations}), Poisson its "
+          f"{r['poisson_iterations'].tolist()} ({ref.poisson_iterations}); "
+          f"launches by rank {launches}")
+    print(f"[sharded procs] {n} all-reduces in a Poisson solve of {k} "
+          f"BiCGSTAB iterations: {(n - 2) / max(k, 1):.2f} an iteration "
+          f"(and 2 around the loop; the owner-partitioned ranks make 11 "
+          f"collectives an iteration), a gloo all-reduce of {space_r.ndof} "
+          f"f64 {float(r['allreduce_ms']):.3f} ms; the ranks' final fields "
+          f"bitwise equal {same}; against one process {err:.3e} of max + 1 "
+          f"(tol {SHARD_TOL:g})", flush=True)
+    check(str(r["poisson_tier"]) == "krylov", "the sharded ranks' tier")
+    check(int(r["n_ranks"]) == PROCS_RANKS, "ranks")
+    check(same, "[sharded procs] the ranks' final fields differ")
+    for name, c in launches.items():
+        check(all(x > 0 for x in c), f"kernel {name} was not launched on "
+              "every rank")
+    check(err <= SHARD_TOL, "[sharded procs] against one process")
+
+    r2 = procs_launch(MS, "sharded_nccl", 1, [
+        "--task", "sharded", "--backend", "nccl", "--steps",
+        str(SHARD_PROCS_STEPS), "--deterministic"])
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ref = one()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    err2 = dist_fields_err(npz_run(r2), ref, scaled_err)
+    launches2 = {str(n): int(v) for n, v in zip(r2["kernel_names"],
+                                                r2["launches"][0])}
+    print(f"[sharded nccl] 1 rank x {SHARD_K} shards: step ms "
+          + " ".join(f"{float(t):.1f}" for t in r2["step_ms"])
+          + f", Poisson its {r2['poisson_iterations'].tolist()} "
+          f"({ref.poisson_iterations}); launches {launches2}; against one "
+          f"process (both deterministic) {err2:.3e} (bitwise)", flush=True)
+    for name, c in launches2.items():
+        check(c > 0, f"kernel {name} was not launched on the NCCL rank")
+    check(err2 == 0.0, "[sharded nccl] not bitwise equal to one process")
+    return launches, launches2
 
 
 def p2_phase(torch, K, W, problems, make_scalar_context, dev):
@@ -2307,6 +2574,14 @@ def main() -> int:
     print(f"[distributed and P2 done] {time.perf_counter() - t_all:.1f} s",
           flush=True)
 
+    # ---- element sharding: the single driver on K element shards ----------
+    shard_k, shard_counts = sharded_main(torch, K, W, direct,
+                                         make_scalar_context, maybe_trace,
+                                         pore_case, dev)
+    shard_procs, shard_nccl = sharded_procs(torch, W, MS, pore_case, dev)
+    print(f"[element sharding done] {time.perf_counter() - t_all:.1f} s",
+          flush=True)
+
     # ---- 11-13. the inverse tiers above it, the other workloads -----------
     mid_k, mid_counts = mid_species_main(torch, K, W, direct, pore_case,
                                          ras_res, dev)
@@ -2355,7 +2630,11 @@ def main() -> int:
          "procs_species_shape": procs_k["gj_species"],
          "procs_pb_shape": procs_k["gj_pb"],
          "launches_bench": bench_counts["gj_inverse"],
-         "bench_shape": bench_k["gj"]},
+         "bench_shape": bench_k["gj"],
+         "launches_sharded": shard_counts["gj_inverse"],
+         "sharded_shape": shard_k["gj"],
+         "launches_sharded_procs": shard_procs["gj_inverse"],
+         "launches_sharded_nccl": shard_nccl["gj_inverse"]},
         {"name": "pb_residual_jacobian", "route": "cuda",
          "source": "pnp_tpu_torch/csrc/pb_element.cu",
          "replaces": "pnp_tpu/operators/pallas_kernels.py:105",
@@ -2377,7 +2656,11 @@ def main() -> int:
          "launches_procs_nccl": nccl_counts["pb_residual_jacobian"],
          "procs_shape": procs_k["pb"],
          "launches_bench": bench_counts["pb_residual_jacobian"],
-         "bench_shape": bench_k["pb"]},
+         "bench_shape": bench_k["pb"],
+         "launches_sharded": shard_counts["pb_residual_jacobian"],
+         "sharded_shape": shard_k["pb"],
+         "launches_sharded_procs": shard_procs["pb_residual_jacobian"],
+         "launches_sharded_nccl": shard_nccl["pb_residual_jacobian"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,11 +11,20 @@ constrained operator acts as identity on constrained dofs.
 On CUDA, ``index_add_`` and accumulating ``index_put_`` sum with atomics
 in an order that changes from run to run, so sums vary in the last bits
 between runs; every tolerance that reads them says so.
+
+Element-sharded tables (:mod:`..parallel.sharding`) carry their dof map as
+a :class:`~..parallel.sharding.ShardedDofmap`: :func:`scatter_add` and
+:func:`scatter_add_batched`, the scatters every assembly and SpMV here goes
+through, hand it the values, and it sums the shards' partial vectors (the
+psum GSPMD inserted in the reference). Any other dof map takes the plain
+``index_add_``.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..parallel.sharding import ShardedDofmap
 
 
 def gather(u, dofmap):
@@ -25,8 +34,20 @@ def gather(u, dofmap):
 
 def scatter_add(values, dofmap, ndof: int):
     """Accumulate per-element values (E, ndof_el) into a global (ndof,) vector."""
+    if isinstance(dofmap, ShardedDofmap):
+        return dofmap.scatter(values, ndof)
     out = torch.zeros(ndof, dtype=values.dtype, device=values.device)
     return out.index_add_(0, dofmap.reshape(-1), values.reshape(-1))
+
+
+def scatter_add_batched(values, dofmap, ndof: int):
+    """Batched :func:`scatter_add`: values (S, E, ndof_el) -> (S, ndof)."""
+    if isinstance(dofmap, ShardedDofmap):
+        return dofmap.scatter(values, ndof)
+    out = torch.zeros((values.shape[0], ndof), dtype=values.dtype,
+                      device=values.device)
+    return out.index_add_(1, dofmap.reshape(-1),
+                          values.reshape(values.shape[0], -1))
 
 
 def spmv(A_el, x, dofmap, ndof: int):
@@ -40,10 +61,8 @@ def spmv(A_el, x, dofmap, ndof: int):
 
 def spmv_batched(A_el, x, dofmap, ndof: int):
     """Batched matrix-free SpMV: A_el (S, E, n, n), x (S, ndof)."""
-    S = x.shape[0]
     ye = torch.einsum("seij,sej->sei", A_el, x[:, dofmap])
-    out = torch.zeros((S, ndof), dtype=x.dtype, device=x.device)
-    return out.index_add_(1, dofmap.reshape(-1), ye.reshape(S, -1))
+    return scatter_add_batched(ye, dofmap, ndof)
 
 
 def make_constrained_operator_batched(A_el, dofmap, ndof: int, free):

@@ -8,9 +8,9 @@ pieces (block context, RAS factors with their p1 coarse tables, the
 Poisson inverse of the mid-size and of the very-large tier, a species
 factor of either kind) so a solve can be compared with the preconditioner
 held equal, the composite state of the monolithic workloads, and the
-multi-device pieces (a halo plan, an owner-partitioned state). Nothing
-here imports ``pnp_tpu`` or ``jax``; arrays pass through
-``numpy.asarray``.
+multi-device pieces (a halo plan, an owner-partitioned state, padded
+element-sharded volume tables). Nothing here imports ``pnp_tpu`` or
+``jax``; arrays pass through ``numpy.asarray``.
 """
 
 from __future__ import annotations
@@ -49,11 +49,24 @@ def function_space(src) -> FunctionSpace:
     return FunctionSpace(mesh(src.mesh), int(src.degree))
 
 
-def volume_tables(src, device="cpu") -> VolumeTables:
-    return VolumeTables(shape=f64(src.shape, device),
-                        gradphi=f64(src.gradphi, device),
-                        qw=f64(src.qw, device), qy=f64(src.qy, device),
-                        dofmap=index(src.dofmap, device))
+def volume_tables(src, device="cpu", mesh=None) -> VolumeTables:
+    """Volume tables -> the port's on ``device``. With ``mesh`` (a
+    :class:`.parallel.distributed.RankLayout`) ``src`` is the reference's
+    padded, element-sharded set (``pnp_tpu.parallel.sharding.
+    shard_volume_tables``, read whole): the result is this rank's shards
+    of it, as ``parallel.sharding.shard_volume_tables`` lays them out
+    (on the mesh's device)."""
+    vt = VolumeTables(shape=f64(src.shape, device),
+                      gradphi=f64(src.gradphi, device),
+                      qw=f64(src.qw, device), qy=f64(src.qy, device),
+                      dofmap=index(src.dofmap, device))
+    if mesh is None:
+        return vt
+    from .parallel.sharding import shard_volume_tables
+    if vt.dofmap.shape[0] % mesh.n_shards:
+        raise ValueError(f"{vt.dofmap.shape[0]} elements are not padded "
+                         f"to a multiple of {mesh.n_shards} shards")
+    return shard_volume_tables(vt, mesh)
 
 
 def boundary_tables(src, device="cpu") -> BoundaryTables:

@@ -29,6 +29,14 @@ env-element gather, the Schwarz local matrices it assembles, an SpMV and
 the reduced dots, gathered to the
 coordinator's ``.npz`` in shard order.
 
+``--task sharded`` instead runs the single-device driver on element-sharded
+tables (``run_instationary_pnp_from_pb(device_mesh=layout)``,
+:mod:`pnp_tpu_torch.parallel.sharding`): every rank holds whole dof
+vectors and K / P element shards, and each scatter ends in one
+``all_reduce``. The coordinator writes the fields, currents, counts and
+step times, and every rank's final fields (``rank_fields``, (P, 3, ndof)),
+which replicated vectors make bitwise equal.
+
 ``--fail-probe-on-rank R`` makes every contraction-probe verdict on rank R
 a failure (a fault injected to show that all ranks then raise together).
 """
@@ -56,6 +64,8 @@ from pnp_tpu_torch.parallel.dist import build_dist_context
 from pnp_tpu_torch.solvers import direct
 from pnp_tpu_torch.solvers import schwarz as SW
 from pnp_tpu_torch.workloads import distributed_pnp as TD
+from pnp_tpu_torch.workloads.instationary_pnp_from_pb import (
+    run_instationary_pnp_from_pb)
 
 EXCHANGE_SEED = 11
 #: seconds the other ranks get to fail on their own after one failed
@@ -74,7 +84,8 @@ def parser() -> argparse.ArgumentParser:
                     help="default: nccl where each rank has a card")
     ap.add_argument("--device", default=None,
                     help="'cpu', or default the rank's CUDA device")
-    ap.add_argument("--task", choices=("run", "exchange"), default="run")
+    ap.add_argument("--task", choices=("run", "exchange", "sharded"),
+                    default="run")
     ap.add_argument("--case", choices=("one_wall", "pore"),
                     default="one_wall")
     ap.add_argument("--nx", type=int, default=40)
@@ -241,6 +252,41 @@ def result_arrays(res, counts, layout) -> dict:
         launches=launches, time=res.time)
 
 
+def run_sharded(args, layout):
+    """This rank's part of the single-device driver on element-sharded
+    tables, its own phase A included: ``(result, launches by kernel)``,
+    the counts reset just before the run."""
+    sys_, space = build_case(args)
+    KN.reset_launch_counts()
+    res = run_instationary_pnp_from_pb(
+        sys_, space, n_steps=args.steps, output_dir=args.output_dir,
+        device_mesh=layout, presolve_potential=args.presolve)
+    return res, dict(KN.launches)
+
+
+def sharded_arrays(res, counts, layout) -> dict:
+    """The sharded run's numbers as arrays, with every rank's final fields
+    and launch counts (every rank calls it: it gathers)."""
+    names = sorted(counts)
+    mine = torch.tensor([float(counts[n]) for n in names], dtype=torch.float64,
+                        device=layout.device)
+    fields = torch.stack([res.phi, res.cp, res.cm])
+    hist = res.current_history
+    return dict(
+        phi=res.phi.cpu().numpy(), cp=res.cp.cpu().numpy(),
+        cm=res.cm.cpu().numpy(),
+        rank_fields=torch.stack(PD.gather_ranks(fields)).cpu().numpy(),
+        times=np.array([h[0] for h in hist]),
+        ip=np.array([h[1] for h in hist]), im=np.array([h[2] for h in hist]),
+        step_ms=np.array(res.step_ms),
+        species_iterations=np.array(res.species_iterations),
+        poisson_iterations=np.array(res.poisson_iterations),
+        pb_newton_iterations=res.pb_newton_iterations,
+        poisson_tier=res.system.poisson_tier, n_ranks=layout.world_size,
+        n_shards=layout.n_shards, kernel_names=np.array(names),
+        launches=torch.stack(PD.gather_ranks(mine)).cpu().numpy())
+
+
 def exchange_case(layout):
     """The exchange check's case and its seeded global inputs (the same on
     every rank and in a caller that holds them against one process)."""
@@ -306,6 +352,16 @@ def worker(args) -> int:
               f"{layout.n_shards} on {layout.device}", flush=True)
         if args.task == "exchange":
             arrays = exchange_task(layout)
+        elif args.task == "sharded":
+            res, counts = run_sharded(args, layout)
+            arrays = sharded_arrays(res, counts, layout)
+            print(f"rank {layout.rank}: {res.steps} steps on element "
+                  f"shards, Poisson tier {res.system.poisson_tier}, PB "
+                  f"Newton {res.pb_newton_iterations}, species its "
+                  f"{res.species_iterations}, Poisson its "
+                  f"{res.poisson_iterations}, step ms "
+                  + " ".join(f"{t:.1f}" for t in res.step_ms)
+                  + f", launches {counts}", flush=True)
         else:
             res, counts = run(args, layout)
             arrays = result_arrays(res, counts, layout)

@@ -52,9 +52,20 @@ Poisson do carry it); quadrature orders 3 (PB/Poisson), 2 (species
 spatial), 5 (species mass); dt = tau.
 
 ``CG_AMG_SSOR`` runs CG under two-level aggregation AMG above the dense
-tier (one aggregation for phi, one for the species pair). Not ported: the
-``device_mesh`` argument, the reference's element sharding by annotation;
-the owner-partitioned multi-device driver is
+tier (one aggregation for phi, one for the species pair).
+
+``device_mesh`` (K element shards, :mod:`..parallel.sharding`): the
+species and Poisson element tables (orders 2, 5 and 3) are split over the
+shards, dof vectors stay whole, and every scatter over them sums the
+shards' partials (over the shard axis, then one all-reduce over ranks).
+As in the reference the dense tier and block-RAS are then off at every
+size: the Poisson re-solve is the configured variant's Krylov solve on the
+assembled diagonal (``BCGS_SSORk``: BiCGSTAB under Chebyshev-Jacobi(3))
+and the species stages take the species Krylov path. Phase A's PB solve,
+the boundary tables and the ion flux stay unsharded. Under ranks only the
+coordinator writes outputs and checkpoints. ``CG_AMG_SSOR`` is not ported
+on it (its aggregation reads whole element tables). The owner-partitioned
+multi-device driver is
 :func:`..workloads.distributed_pnp.run_distributed_pnp_from_pb`.
 """
 
@@ -87,6 +98,9 @@ from ..solvers.direct import (batched_inv_f32, inv_f32_probe, inv_f32_setup,
 from ..solvers.krylov import bicgstab
 from ..solvers.linear_problem import make_krylov_solver
 from ..solvers.precond import estimate_dinv_spectral_radius
+from ..parallel.distributed import RankLayout, as_layout, is_coordinator
+from ..parallel.sharding import (make_device_mesh, replicate,
+                                 shard_volume_tables)
 from ..utils.device import resolve_device
 from .common import make_scalar_context
 from .pb import solve_pb
@@ -112,6 +126,17 @@ def _spectral_probe(ndof: int, device):
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def element_mesh(device_mesh, device):
+    """``device_mesh`` (a :class:`RankLayout`, a shard count over the
+    process group, or None) as (layout or None, device)."""
+    if device_mesh is None:
+        return None, resolve_device(device)
+    mesh = (as_layout(device_mesh, device)
+            if isinstance(device_mesh, RankLayout)
+            else make_device_mesh(device_mesh, device))
+    return mesh, mesh.device
 
 
 def equilibrated_dense_f32(A_el, dofmap, ndof: int, free):
@@ -217,16 +242,20 @@ def build_pnp_system(
     stage inverses and, where they pass the contraction probe, reuse
     steps refine with them instead of running RAS BiCGSTAB. The reference
     offers it on a TPU only; here it runs on any device.
+    ``device_mesh``: K element shards (a shard count, or a layout from
+    ``parallel.sharding.make_device_mesh``; its device is the run's); the
+    dense tier and block-RAS are then off (see the module docstring).
     """
-    device = resolve_device(device)
+    mesh, device = element_mesh(device_mesh, device)
     tab = tableau if tableau is not None else alexander2()
     dt = sys.tau
     pi = sys.pi
     ndof = space.ndof
-    if device_mesh is not None:
+    if mesh is not None and sys.linearSolver == "CG_AMG_SSOR":
         raise NotImplementedError(
-            "device_mesh (element sharding by annotation) is not ported; "
-            "the owner-partitioned multi-device driver is "
+            "CG_AMG_SSOR on element-sharded tables is not ported (its "
+            "aggregation reads whole element tables); take another solver "
+            "variant, or the owner-partitioned driver "
             "workloads.distributed_pnp.run_distributed_pnp_from_pb")
     a_tab = [[float(v) for v in row] for row in tab.A]
     b_tab = [[float(v) for v in row] for row in tab.B]
@@ -238,8 +267,9 @@ def build_pnp_system(
         for i in range(stages))
     # raises for an unknown variant
     krylov = make_krylov_solver(sys.linearSolver, sys.linearSolverIterations)
-    use_dense = ndof <= dense_poisson_threshold
-    use_block_ras = not use_dense and sys.linearSolver == "BCGS_SSORk"
+    use_dense = ndof <= dense_poisson_threshold and mesh is None
+    use_block_ras = (mesh is None and not use_dense
+                     and sys.linearSolver == "BCGS_SSORk")
     use_dense_species = use_dense and uniform_stage_diag
     use_ras_factor = use_block_ras and uniform_stage_diag
     use_species_krylov = not use_dense_species and not use_block_ras
@@ -253,12 +283,17 @@ def build_pnp_system(
         pb, pb_iters = pb_res.u, pb_res.iterations
     else:
         pb, pb_iters = torch.as_tensor(pb_field, dtype=F64, device=device), 0
+    if mesh is not None:
+        pb = replicate(mesh, pb)
     _sync(device)
     pb_seconds = _time.perf_counter() - t0
 
     # ---- Phase B: constraints + initial fields --------------------------
     ctx_phi = make_scalar_context(sys, space, component=0, quad_order=3,
                                   device=device)
+    if mesh is not None:
+        ctx_phi = dataclasses.replace(ctx_phi, flux_vector=replicate(
+            mesh, ctx_phi.flux_vector))
     masks = [torch.as_tensor(C.free_dof_mask(space, sys, c), device=device)
              for c in (1, 2)]
     free_pair = torch.stack(masks)                          # (2, ndof)
@@ -274,6 +309,9 @@ def build_pnp_system(
     vt2 = build_volume_tables(space, max(2, 2 * space.degree), device)
     vt5 = build_volume_tables(space, max(5, 2 * space.degree + 1), device)
     vt_phi = ctx_phi.vt
+    if mesh is not None:
+        vt2, vt5, vt_phi = (shard_volume_tables(vt, mesh)
+                            for vt in (vt2, vt5, vt_phi))
 
     krylov_phi = krylov_sp = krylov
     if sys.linearSolver == "CG_AMG_SSOR" and not use_dense:
@@ -484,9 +522,7 @@ def build_pnp_system(
 
         def mass_apply(u):
             ye = torch.einsum("eij,sej->sei", M_el, u[:, vt5.dofmap])
-            out = torch.zeros((2, ndof), dtype=F64, device=device)
-            return out.index_add_(1, vt5.dofmap.reshape(-1),
-                                  ye.reshape(2, -1))
+            return FA.scatter_add_batched(ye, vt5.dofmap, ndof)
 
         def alpha_apply(u):
             return FA.spmv_batched(K_pair, u, vt2.dofmap, ndof)
@@ -538,9 +574,8 @@ def build_pnp_system(
                 res = bicgstab(op, r, torch.zeros_like(r), M_s,
                                stage_reduction, sys.linearSolverIterations)
             else:
-                dg = torch.zeros((2, ndof), dtype=F64, device=device)
-                dg.index_add_(1, vt2.dofmap.reshape(-1), torch.diagonal(
-                    A_el, dim1=-2, dim2=-1).reshape(2, -1))
+                dg = FA.scatter_add_batched(torch.diagonal(
+                    A_el, dim1=-2, dim2=-1), vt2.dofmap, ndof)
                 dg = torch.where(free_pair, dg, 1.0)
                 res = krylov_sp(op, r, torch.zeros_like(r), dg,
                                 stage_reduction, A_el=A_el, lam=lam_species)
@@ -724,11 +759,16 @@ def run_instationary_pnp_from_pb(
     dense tier): the block-RAS species factor is rebuilt on steps whose
     absolute index is a multiple of it (and on the first step run), so a
     resumed run keeps the uninterrupted run's schedule; in between, steps
-    reuse it. The dense tier always builds a fresh factor."""
-    device = resolve_device(device)
+    reuse it. The dense tier always builds a fresh factor.
+    ``device_mesh``: see :func:`build_pnp_system`; under ranks only the
+    coordinator writes ``output_dir`` and checkpoints."""
+    mesh, device = element_mesh(device_mesh, device)
+    writes = mesh is None or is_coordinator()
+    if not writes:
+        output_dir = None
     n_steps = sys.nSteps if n_steps is None else n_steps
     t_setup = _time.perf_counter()
-    system = build_pnp_system(sys, space, tableau, device_mesh,
+    system = build_pnp_system(sys, space, tableau, mesh,
                               stage_reduction=stage_reduction,
                               dense_poisson_threshold=dense_poisson_threshold,
                               ras_block_size=ras_block_size,
@@ -805,7 +845,7 @@ def run_instationary_pnp_from_pb(
                     write_vtu(space, fields, os.path.join(
                         output_dir, f"data{output_counter:03d}.vtu"))
                     current_writer.write(time, ip, im)
-            if (checkpoint_path and checkpoint_freq
+            if (writes and checkpoint_path and checkpoint_freq
                     and (i + 1) % checkpoint_freq == 0):
                 save_checkpoint(checkpoint_path, sys, i + 1, time,
                                 _host(uphi), _host(ucp), _host(ucm))
@@ -815,7 +855,7 @@ def run_instationary_pnp_from_pb(
                 if not bool(torch.isfinite(uphi).all()
                             & torch.isfinite(ucp).all()
                             & torch.isfinite(ucm).all()):
-                    if checkpoint_path:
+                    if writes and checkpoint_path:
                         save_checkpoint(checkpoint_path + ".emergency", sys,
                                         i + 1, time, _host(uphi), _host(ucp),
                                         _host(ucm))

@@ -5,6 +5,7 @@ relative: with refinement run to convergence, swapping the f32 stage
 inverse for another one moves the trajectory by ~5e-15, so the bound holds
 though the port's Gauss-Jordan inverse rounds differently from XLA's."""
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -144,8 +145,8 @@ def test_unported_tiers_raise():
     """Above the dense threshold the block-RAS tier builds, and a tableau
     whose stage diagonals differ takes the species Krylov path; the
     mid-size species tier builds where ``species_inv_threshold`` admits
-    the mesh; the option that is still unported raises, naming its
-    ROADMAP item."""
+    the mesh; the option that is still unported (``CG_AMG_SSOR`` on
+    element-sharded tables) raises, naming the driver that runs it."""
     tsys, tspace = problems.pore_case(30, 17)
     system = TW.build_pnp_system(tsys, tspace, dense_poisson_threshold=100,
                                  device="cpu")
@@ -161,7 +162,9 @@ def test_unported_tiers_raise():
     assert X.dtype == torch.float32
     with pytest.raises(NotImplementedError,
                        match="run_distributed_pnp_from_pb"):
-        TW.build_pnp_system(tsys, tspace, device_mesh=object(), device="cpu")
+        TW.build_pnp_system(
+            dataclasses.replace(tsys, linearSolver="CG_AMG_SSOR"), tspace,
+            device_mesh=8, device="cpu")
     skewed = Tableau("skewed", A=np.array([[-1.0, 1.0, 0.0],
                                            [-1.0, 0.0, 1.0]]),
                      B=np.array([[0.0, 0.3, 0.0], [0.0, 0.5, 0.4]]),

@@ -289,7 +289,8 @@ def test_gates_that_stay_closed(case):
     """``CG_AMG_SSOR`` above the dense tier: CG under the two-level AMG on
     both Krylov paths (one aggregation for phi, one over the species
     masks' union), held to the reference like the other variants. Not
-    ported: a device mesh (the raise names the owner-partitioned driver).
+    ported: this variant on element-sharded tables (the raise names the
+    owner-partitioned driver).
     The mid-size species inverse tier is a block-RAS option: with another
     solver variant it changes nothing, as in the reference. An unknown
     variant is a ValueError, as in the reference."""
@@ -309,8 +310,9 @@ def test_gates_that_stay_closed(case):
     assert system.factor_kind is None and system.species_factor is None
     with pytest.raises(NotImplementedError,
                        match="run_distributed_pnp_from_pb"):
-        TW.build_pnp_system(tsys, tspace, pb_field=pb, device_mesh=object(),
-                            device="cpu")
+        TW.build_pnp_system(
+            dataclasses.replace(tsys, linearSolver="CG_AMG_SSOR"), tspace,
+            pb_field=pb, device_mesh=8, device="cpu")
     with pytest.raises(ValueError):
         TW.build_pnp_system(dataclasses.replace(tsys, linearSolver="GMRES"),
                             tspace, pb_field=pb, device="cpu")
