@@ -136,6 +136,21 @@ result line:
     all-reduce's ms. ``[sharded nccl]``: one NCCL rank x 8 shards, 2
     steps, bitwise equal to one process (both under PyTorch's
     deterministic algorithms);
+10e. element sharding under ``CG_AMG_SSOR`` (``[sharded amg]``): the same
+    driver and case, 8 element shards of its 23,552 triangles, CG under
+    the two-level aggregation AMG on both Krylov paths (the aggregations
+    of the whole dof map, each coarse matrix summed from the shards'
+    element blocks); phase A unsharded under the same variant (kernel 2
+    alone: no RAS batch, so kernel 1 is launched no time, which is
+    checked); 4 presolved steps, every launch counted, held against the
+    unsharded driver on the card (the same Krylov tier above 8,192 dofs)
+    and, on ``pore_case(80, 44)`` (2 steps), against the CPU, to
+    SHARD_TOL of max + 1; step ms, iterations, phase A seconds, peak GiB;
+    ``[sharded amg trace]``: one traced step
+    (``chip_smoke_out/sharded_amg/trace_step/``); kernel 2 at E = 23,552
+    against its plain version. ``[sharded amg procs]`` and ``[sharded amg
+    nccl]``: ``[sharded procs]`` and ``[sharded nccl]`` under this
+    variant (the all-reduces a CG iteration and around it);
 12. the mid-size species tier (``[mid-species main]``): ``pore_case(160,
     88)`` with ``species_inv_threshold=16384``, 8 presolved steps, a
     refresh every 4 (kernel 1 at (2, 12097, 12097) each refresh): factor
@@ -198,8 +213,11 @@ under ``procs_species_shape``, ``procs_pb_shape`` and (kernel 2)
 count those paths' runs; ``[bench]``'s L0 shapes are under ``bench_shape``
 and its launches under ``launches_bench``; ``[sharded]``'s under
 ``sharded_shape`` and ``launches_sharded``, with
-``launches_sharded_procs`` (by rank) and ``launches_sharded_nccl``. The last line is ``{"ok":
-true, "device": {...}}``.
+``launches_sharded_procs`` (by rank) and ``launches_sharded_nccl``;
+``[sharded amg]``'s (kernel 2) under ``sharded_amg_shape``, and its
+launches under ``launches_sharded_amg`` (kernel 1: 0),
+``launches_sharded_amg_procs`` and ``launches_sharded_amg_nccl``. The
+last line is ``{"ok": true, "device": {...}}``.
 Needs a CUDA device and ``nvcc``; writes the runs' outputs under
 ``chip_smoke_out/`` (gitignored).
 """
@@ -328,6 +346,11 @@ SHARD_TOL = 1e-6
 SHARD_PARITY_CASE = (80, 44)
 SHARD_PARITY_STEPS = 2
 SHARD_PROCS_STEPS = 2
+# the kernels each solver variant's sharded path launches: under
+# CG_AMG_SSOR phase A builds no RAS batch (its Newton runs CG under AMG),
+# so kernel 1 has no caller there
+PATH_KERNELS = {"BCGS_SSORk": ("gj_inverse", "pb_residual_jacobian"),
+                "CG_AMG_SSOR": ("pb_residual_jacobian",)}
 # the P2 production run on the dense tier (2,709 dofs, 1,280 triangles)
 P2_CASE = (64, 10)
 P2_STEPS = 3
@@ -1728,26 +1751,37 @@ def sharded_collectives(torch, dist, res, layout) -> dict:
             / ALLREDUCE_REPS}
 
 
-def sharded_procs(torch, W, MS, pore_case, dev):
-    """``[sharded procs]``: the sharded driver as PROCS_RANKS gloo ranks x
-    SHARD_K / PROCS_RANKS shards on the one card (each rank its own phase
-    A, rank 0's PB field replicated), SHARD_PROCS_STEPS presolved steps:
-    the ranks' final fields bitwise equal, held against one process at K =
-    SHARD_K to SHARD_TOL of max + 1; the all-reduces a BiCGSTAB iteration
-    and a gloo all-reduce's ms. ``[sharded nccl]``: one NCCL rank x
-    SHARD_K shards, both it and the one-process run under PyTorch's
-    deterministic algorithms, bitwise equal. Returns the launches (by
-    rank) of both."""
+#: all-reduces of one element-sharded Poisson solve outside its Krylov
+#: loop, by solver variant: the residual's scatter and the operator on the
+#: start vector; under CG_AMG_SSOR also the coarse matrix's sum and the
+#: preconditioner on the first residual (its two smoothing SpMVs)
+SOLVE_ALLREDUCES_AROUND = {"BCGS_SSORk": 2, "CG_AMG_SSOR": 5}
+
+
+def sharded_procs(torch, W, MS, pore_case, dev, solver="BCGS_SSORk",
+                  tag="sharded"):
+    """``[sharded procs]``: the sharded driver under ``solver`` as
+    PROCS_RANKS gloo ranks x SHARD_K / PROCS_RANKS shards on the one card
+    (each rank its own phase A, rank 0's PB field replicated),
+    SHARD_PROCS_STEPS presolved steps: the ranks' final fields bitwise
+    equal, held against one process at K = SHARD_K to SHARD_TOL of max +
+    1; the all-reduces a Krylov iteration and a gloo all-reduce's ms.
+    ``[sharded nccl]``: one NCCL rank x SHARD_K shards, both it and the
+    one-process run under PyTorch's deterministic algorithms, bitwise
+    equal. ``tag`` names the phases. Returns the launches (by rank) of
+    both."""
     import numpy as np
 
     sys_r, space_r = pore_case(*RAS_CASE)
+    sys_r = dataclasses.replace(sys_r, linearSolver=solver)
+    name = tag.replace(" ", "_")
     one = lambda: W.run_instationary_pnp_from_pb(
         sys_r, space_r, n_steps=SHARD_PROCS_STEPS, presolve_potential=True,
         device_mesh=SHARD_K, device=dev)
-    r = procs_launch(MS, "sharded_gloo", PROCS_RANKS, [
-        "--task", "sharded", "--backend", "gloo", "--steps",
-        str(SHARD_PROCS_STEPS), "--measure", "--output-dir",
-        os.path.join(REPO, "chip_smoke_out", "procs", "sharded_out")])
+    r = procs_launch(MS, f"{name}_gloo", PROCS_RANKS, [
+        "--task", "sharded", "--solver", solver, "--backend", "gloo",
+        "--steps", str(SHARD_PROCS_STEPS), "--measure", "--output-dir",
+        os.path.join(REPO, "chip_smoke_out", "procs", f"{name}_out")])
     ref = one()
     err = dist_fields_err(npz_run(r), ref, scaled_err)
     names = [str(n) for n in r["kernel_names"]]
@@ -1756,8 +1790,10 @@ def sharded_procs(torch, W, MS, pore_case, dev):
     fields = r["rank_fields"]
     same = all(np.array_equal(fields[0], f) for f in fields[1:])
     n, k = int(r["solve_allreduces"]), int(r["solve_iterations"])
-    print(f"[sharded procs] {PROCS_RANKS} gloo ranks x "
-          f"{SHARD_K // PROCS_RANKS} shards: Poisson tier "
+    c = SOLVE_ALLREDUCES_AROUND[solver]
+    krylov = "CG" if solver.startswith("CG") else "BiCGSTAB"
+    print(f"[{tag} procs] {PROCS_RANKS} gloo ranks x "
+          f"{SHARD_K // PROCS_RANKS} shards ({solver}): Poisson tier "
           f"{r['poisson_tier']}, step ms "
           + " ".join(f"{float(t):.1f}" for t in r["step_ms"])
           + " (one process: " + " ".join(f"{t:.1f}" for t in ref.step_ms)
@@ -1765,24 +1801,25 @@ def sharded_procs(torch, W, MS, pore_case, dev):
           f"({ref.species_iterations}), Poisson its "
           f"{r['poisson_iterations'].tolist()} ({ref.poisson_iterations}); "
           f"launches by rank {launches}")
-    print(f"[sharded procs] {n} all-reduces in a Poisson solve of {k} "
-          f"BiCGSTAB iterations: {(n - 2) / max(k, 1):.2f} an iteration "
-          f"(and 2 around the loop; the owner-partitioned ranks make 11 "
-          f"collectives an iteration), a gloo all-reduce of {space_r.ndof} "
-          f"f64 {float(r['allreduce_ms']):.3f} ms; the ranks' final fields "
-          f"bitwise equal {same}; against one process {err:.3e} of max + 1 "
-          f"(tol {SHARD_TOL:g})", flush=True)
-    check(str(r["poisson_tier"]) == "krylov", "the sharded ranks' tier")
+    print(f"[{tag} procs] {n} all-reduces in a Poisson solve of {k} "
+          f"{krylov} iterations: {(n - c) / max(k, 1):.2f} an iteration "
+          f"(and {c} around the loop; the owner-partitioned ranks make 11 "
+          f"collectives a BiCGSTAB iteration), a gloo all-reduce of "
+          f"{space_r.ndof} f64 {float(r['allreduce_ms']):.3f} ms; the ranks' "
+          f"final fields bitwise equal {same}; against one process "
+          f"{err:.3e} of max + 1 (tol {SHARD_TOL:g})", flush=True)
+    check(str(r["poisson_tier"]) == "krylov", f"the {tag} ranks' tier")
     check(int(r["n_ranks"]) == PROCS_RANKS, "ranks")
-    check(same, "[sharded procs] the ranks' final fields differ")
-    for name, c in launches.items():
-        check(all(x > 0 for x in c), f"kernel {name} was not launched on "
-              "every rank")
-    check(err <= SHARD_TOL, "[sharded procs] against one process")
+    check(same, f"[{tag} procs] the ranks' final fields differ")
+    for kname, cs in launches.items():
+        if kname in PATH_KERNELS[solver]:
+            check(all(x > 0 for x in cs), f"kernel {kname} was not "
+                  f"launched on every rank of [{tag} procs]")
+    check(err <= SHARD_TOL, f"[{tag} procs] against one process")
 
-    r2 = procs_launch(MS, "sharded_nccl", 1, [
-        "--task", "sharded", "--backend", "nccl", "--steps",
-        str(SHARD_PROCS_STEPS), "--deterministic"])
+    r2 = procs_launch(MS, f"{name}_nccl", 1, [
+        "--task", "sharded", "--solver", solver, "--backend", "nccl",
+        "--steps", str(SHARD_PROCS_STEPS), "--deterministic"])
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         ref = one()
@@ -1791,15 +1828,121 @@ def sharded_procs(torch, W, MS, pore_case, dev):
     err2 = dist_fields_err(npz_run(r2), ref, scaled_err)
     launches2 = {str(n): int(v) for n, v in zip(r2["kernel_names"],
                                                 r2["launches"][0])}
-    print(f"[sharded nccl] 1 rank x {SHARD_K} shards: step ms "
+    print(f"[{tag} nccl] 1 rank x {SHARD_K} shards: step ms "
           + " ".join(f"{float(t):.1f}" for t in r2["step_ms"])
           + f", Poisson its {r2['poisson_iterations'].tolist()} "
           f"({ref.poisson_iterations}); launches {launches2}; against one "
           f"process (both deterministic) {err2:.3e} (bitwise)", flush=True)
-    for name, c in launches2.items():
-        check(c > 0, f"kernel {name} was not launched on the NCCL rank")
-    check(err2 == 0.0, "[sharded nccl] not bitwise equal to one process")
+    for kname, cs in launches2.items():
+        if kname in PATH_KERNELS[solver]:
+            check(cs > 0, f"kernel {kname} was not launched on the NCCL "
+                  "rank")
+    check(err2 == 0.0, f"[{tag} nccl] not bitwise equal to one process")
     return launches, launches2
+
+
+def sharded_amg_main(torch, K, W, direct, make_scalar_context, maybe_trace,
+                     pore_case, dev):
+    """``[sharded amg]``: ``run_instationary_pnp_from_pb`` under
+    ``CG_AMG_SSOR`` with ``device_mesh`` SHARD_K on ``pore_case(160, 88)``
+    (23,552 triangles, 2,944 a shard): CG under the two-level AMG on both
+    Krylov paths, the aggregations of the whole dof map, each coarse
+    matrix summed from the shards' element blocks, the smoother's SpMVs
+    through the sharded scatter; phase A unsharded under the same variant
+    (kernel 2; no RAS batch, so no kernel 1). SHARD_STEPS presolved steps,
+    every launch counted (kernel 1 none). Held against the unsharded
+    driver (``device_mesh=None``, the same Krylov tier above 8,192 dofs)
+    on the card and, on ``pore_case(80, 44)``, K = SHARD_K on the card
+    against the CPU, to SHARD_TOL; ``[sharded amg trace]``: one traced
+    step on the final state; then kernel 2 at E = 23,552 against its
+    plain version. Returns kernel 2's entry and the launches."""
+    def amg_case(case):
+        s, sp = pore_case(*case)
+        return dataclasses.replace(s, linearSolver="CG_AMG_SSOR"), sp
+
+    sys_r, space_r = amg_case(RAS_CASE)
+    nodes, tris = space_r.ndof, space_r.mesh.num_tris
+    run = lambda k, d, case=RAS_CASE, steps=SHARD_STEPS: \
+        W.run_instationary_pnp_from_pb(
+            *amg_case(case), n_steps=steps, presolve_potential=True,
+            device_mesh=k, device=d)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_launch_counts()
+    direct.probe_failures["count"] = 0
+    res = run(SHARD_K, dev)
+    counts = dict(K.launches)
+    failures = direct.probe_failures["count"]
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    whole = run(None, dev)
+    err = dist_fields_err(res, whole, scaled_err)
+    per = [scaled_err(getattr(res, n).cpu(), getattr(whole, n).cpu())
+           for n in ("phi", "cp", "cm")]
+    print(f"[sharded amg] pore_case{RAS_CASE}: {nodes} dofs, {tris} "
+          f"triangles in {SHARD_K} element shards on the card "
+          f"({res.system.poisson_tier} Poisson tier, {sys_r.linearSolver}):"
+          f" phase A {res.pb_seconds:.3f} s ({res.pb_newton_iterations} "
+          f"Newton iterations), setup {res.setup_seconds:.3f} s, peak "
+          f"{peak:.2f} GiB")
+    print("[sharded amg] step ms " + " ".join(f"{t:.1f}" for t in
+                                             res.step_ms)
+          + f"; species CG its {res.species_iterations}, Poisson CG its "
+          f"{res.poisson_iterations}; launches {counts}, probe failures "
+          f"{failures}")
+    print(f"[sharded amg] unsharded driver on the card "
+          f"({whole.system.poisson_tier} tier): phase A "
+          f"{whole.pb_seconds:.3f} s, step ms "
+          + " ".join(f"{t:.1f}" for t in whole.step_ms)
+          + f", species its {whole.species_iterations}, Poisson its "
+          f"{whole.poisson_iterations}; K = {SHARD_K} against it: fields "
+          f"and currents {err:.3e} of max + 1 (tol {SHARD_TOL:g}; phi, cp, "
+          "cm " + " ".join(f"{e:.1e}" for e in per) + ")", flush=True)
+    for r in (res, whole):
+        check(r.system.poisson_tier == "krylov", "the Poisson tier")
+        check(all(tuple(v.shape) == (nodes,) and bool(torch.isfinite(v).all())
+                  for v in (r.phi, r.cp, r.cm)), "non-finite or misshapen "
+              "final state")
+    check(failures == 0, f"{failures} contraction-probe failures")
+    for name, n in counts.items():
+        if name in PATH_KERNELS["CG_AMG_SSOR"]:
+            check(n > 0, f"kernel {name} was not launched on the sharded "
+                  "AMG path")
+        else:
+            check(n == 0, f"kernel {name} launched on the sharded AMG path")
+    check(err <= SHARD_TOL, "[sharded amg] K = 8 against the unsharded "
+          "driver")
+
+    gpu, cpu = (run(SHARD_K, d, SHARD_PARITY_CASE, SHARD_PARITY_STEPS)
+                for d in (dev, "cpu"))
+    err = dist_fields_err(gpu, cpu, scaled_err)
+    print(f"[sharded amg] pore_case{SHARD_PARITY_CASE}, K = {SHARD_K}, "
+          f"{SHARD_PARITY_STEPS} steps, CUDA vs CPU: fields and currents "
+          f"{err:.3e} of max + 1 (tol {SHARD_TOL:g}); Poisson its "
+          f"{gpu.poisson_iterations} ({cpu.poisson_iterations}), species "
+          f"its {gpu.species_iterations} ({cpu.species_iterations})",
+          flush=True)
+    check(err <= SHARD_TOL, "[sharded amg] CUDA vs CPU")
+    del gpu, cpu, whole
+
+    system = res.system
+    with maybe_trace(os.path.join(REPO, "chip_smoke_out", "sharded_amg",
+                                  "trace_step")) as prof:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        cp, cm, k = system.species_step(res.phi, res.cp, res.cm)
+        _, kp = system.poisson_solve(res.phi, cp, cm)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    trace_summary(torch, prof, wall, f"one ({k} species CG its, {kp} "
+                  "Poisson CG its)", tag="sharded amg trace")
+
+    ctx = make_scalar_context(sys_r, space_r, component=0, quad_order=3,
+                              device=dev)
+    vt = ctx.vt
+    args = (system.pb[vt.dofmap], vt.shape, vt.gradphi, vt.qw, vt.qy,
+            sys_r.l_b, sys_r.c0, sys_r.cylindrical, sys_r.pi)
+    return {"pb": pb_check(torch, K, args, tris)}, counts
 
 
 def p2_phase(torch, K, W, problems, make_scalar_context, dev):
@@ -2581,6 +2724,13 @@ def main() -> int:
     shard_procs, shard_nccl = sharded_procs(torch, W, MS, pore_case, dev)
     print(f"[element sharding done] {time.perf_counter() - t_all:.1f} s",
           flush=True)
+    amg_k, amg_counts = sharded_amg_main(torch, K, W, direct,
+                                         make_scalar_context, maybe_trace,
+                                         pore_case, dev)
+    amg_procs, amg_nccl = sharded_procs(torch, W, MS, pore_case, dev,
+                                        "CG_AMG_SSOR", "sharded amg")
+    print(f"[element sharding under CG_AMG_SSOR done] "
+          f"{time.perf_counter() - t_all:.1f} s", flush=True)
 
     # ---- 11-13. the inverse tiers above it, the other workloads -----------
     mid_k, mid_counts = mid_species_main(torch, K, W, direct, pore_case,
@@ -2634,7 +2784,10 @@ def main() -> int:
          "launches_sharded": shard_counts["gj_inverse"],
          "sharded_shape": shard_k["gj"],
          "launches_sharded_procs": shard_procs["gj_inverse"],
-         "launches_sharded_nccl": shard_nccl["gj_inverse"]},
+         "launches_sharded_nccl": shard_nccl["gj_inverse"],
+         "launches_sharded_amg": amg_counts["gj_inverse"],
+         "launches_sharded_amg_procs": amg_procs["gj_inverse"],
+         "launches_sharded_amg_nccl": amg_nccl["gj_inverse"]},
         {"name": "pb_residual_jacobian", "route": "cuda",
          "source": "pnp_tpu_torch/csrc/pb_element.cu",
          "replaces": "pnp_tpu/operators/pallas_kernels.py:105",
@@ -2660,7 +2813,11 @@ def main() -> int:
          "launches_sharded": shard_counts["pb_residual_jacobian"],
          "sharded_shape": shard_k["pb"],
          "launches_sharded_procs": shard_procs["pb_residual_jacobian"],
-         "launches_sharded_nccl": shard_nccl["pb_residual_jacobian"]},
+         "launches_sharded_nccl": shard_nccl["pb_residual_jacobian"],
+         "launches_sharded_amg": amg_counts["pb_residual_jacobian"],
+         "sharded_amg_shape": amg_k["pb"],
+         "launches_sharded_amg_procs": amg_procs["pb_residual_jacobian"],
+         "launches_sharded_amg_nccl": amg_nccl["pb_residual_jacobian"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,7 @@ Element records are ``id type ntags tag0 tag1 ... v0 v1 ...`` where tag0 is
 the physical group; type 1 = 2-node line (boundary), type 2 = 3-node triangle.
 
 This parser is pure numpy (fast enough for the shipped meshes); the native
-C++ meshkit (native/meshkit.cpp, bridged in native.py) provides the same
+C++ meshkit (csrc/meshkit.cpp, bridged in native.py) provides the same
 output for large meshes.
 """
 

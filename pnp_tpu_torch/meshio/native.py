@@ -1,16 +1,21 @@
-"""ctypes bridge to the native meshkit (native/meshkit.cpp).
+"""ctypes bridge to the port's native meshkit (``csrc/meshkit.cpp``).
 
-Builds lazily with make on first use. Where the library cannot be built
-or loaded (no C++ toolchain), :func:`native_available` returns ``False``
-and :func:`read_gmsh_native` raises: the caller then reads the file with
-the numpy parser (gmsh.py), which returns the same :class:`Mesh` (asserted
-equal in tests). This concerns a host-side mesh parser only.
+At first use the host C++ compiler (``$CXX``, else ``c++``) builds it into
+``pnp_tpu_torch/_build/meshkit-<hash>/libmeshkit.so``, keyed on a hash of
+the source and the flags, and ``ctypes`` loads it; nothing is built at
+import. Where the library cannot be built or loaded (no C++ toolchain),
+:func:`native_available` returns ``False`` and :func:`read_gmsh_native`
+raises: the caller then reads the file with the numpy parser (gmsh.py),
+which returns the same :class:`Mesh` (asserted equal in tests). This
+concerns a host-side mesh parser only.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import pathlib
 import subprocess
 from typing import Optional
 
@@ -18,11 +23,32 @@ import numpy as np
 
 from .mesh import Mesh
 
-_NATIVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "..", "..", "native")
-_LIB_PATH = os.path.abspath(os.path.join(_NATIVE_DIR, "libmeshkit.so"))
+_PKG = pathlib.Path(__file__).resolve().parents[1]
+SOURCE = _PKG / "csrc" / "meshkit.cpp"
+BUILD_ROOT = _PKG / "_build"
+CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared"]
 _lib = None
 _lib_failed = False
+
+
+def build() -> pathlib.Path:
+    """Compile ``csrc/meshkit.cpp`` unless built already for this source
+    and these flags; the library's path."""
+    cxx = os.environ.get("CXX") or "c++"
+    h = hashlib.sha256(" ".join([cxx, *CXX_FLAGS]).encode())
+    h.update(SOURCE.read_bytes())
+    out_dir = BUILD_ROOT / f"meshkit-{h.hexdigest()[:16]}"
+    lib_path = out_dir / "libmeshkit.so"
+    if not lib_path.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        tmp = out_dir / f"libmeshkit.{os.getpid()}.so"
+        try:
+            subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+                           check=True, capture_output=True)
+            os.replace(tmp, lib_path)
+        finally:
+            tmp.unlink(missing_ok=True)
+    return lib_path
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -30,10 +56,7 @@ def _load() -> Optional[ctypes.CDLL]:
     if _lib is not None or _lib_failed:
         return _lib
     try:
-        if not os.path.exists(_LIB_PATH):
-            subprocess.run(["make", "-s"], cwd=os.path.abspath(_NATIVE_DIR),
-                           check=True, capture_output=True)
-        lib = ctypes.CDLL(_LIB_PATH)
+        lib = ctypes.CDLL(str(build()))
         lib.mk_read.restype = ctypes.c_void_p
         lib.mk_read.argtypes = [ctypes.c_char_p]
         lib.mk_error.restype = ctypes.c_char_p

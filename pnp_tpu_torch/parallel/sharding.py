@@ -79,7 +79,8 @@ class ShardedDofmap(torch.Tensor):
     elements each, carrying its :class:`RankLayout` (``mesh``). Every op
     on it returns a plain tensor (gathers ``u[dofmap]`` included); only
     the scatters of :mod:`..fem.assembly` read ``mesh`` and call
-    :meth:`scatter`."""
+    :meth:`scatter`, and the AMG coarse matrix built from these shards'
+    blocks (:mod:`..solvers.amg`) calls :meth:`all_reduce`."""
 
     __torch_function__ = torch._C._disabled_torch_function_impl
 
@@ -107,10 +108,16 @@ class ShardedDofmap(torch.Tensor):
         part = torch.zeros((S, K_l * ndof), dtype=values.dtype,
                            device=values.device)
         part.index_add_(1, idx, values.reshape(S, -1))
-        out = part.view(S, K_l, ndof).sum(dim=1)
-        if self.mesh.ranked:
-            dist.all_reduce(out)
+        out = self.all_reduce(part.view(S, K_l, ndof).sum(dim=1))
         return out.reshape(*lead, ndof)
+
+    def all_reduce(self, t):
+        """``t``, a sum over this rank's shards, summed over the ranks in
+        place (in one process the rank holds every shard: ``t`` as it
+        is)."""
+        if self.mesh.ranked:
+            dist.all_reduce(t)
+        return t
 
 
 def shard_volume_tables(vt: VolumeTables, mesh: RankLayout) -> VolumeTables:

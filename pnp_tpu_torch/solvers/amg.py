@@ -14,6 +14,15 @@ at src/instationary_pnp_from_pb_md.hh:209-211) as a two-level scheme:
   * damped-Jacobi pre- and post-smoothing (omega = 0.6), which keeps M
     symmetric positive definite for CG.
 
+On element-sharded tables (:mod:`..parallel.sharding`) the aggregation is
+of the whole dof map, the same on every rank, and the element blocks are
+this rank's shards: the coarse matrix is their partial sum, summed over
+the ranks by one all-reduce a build, and the smoother's SpMVs go through
+the sharded dof map's scatter. Dof vectors stay whole, so restriction and
+prolongation need no collective; both are gathers (the restriction's sum
+along a fixed axis, no atomics), so every rank computes the same bits and
+takes the same Krylov branch.
+
 The aggregation is copied from the reference line for line: it decides
 the coarse space, so the arrays must be identical.
 """
@@ -27,6 +36,7 @@ import numpy as np
 import torch
 
 from ..fem import assembly as FA
+from ..parallel.sharding import ShardedDofmap
 from .block_ras import morton_order
 
 
@@ -36,8 +46,12 @@ class AmgContext:
 
     agg: Any             # (ndof,) int64 aggregate id; -1 for constrained dofs
     n_agg: int
-    dofmap: Any          # (E, n) int64
+    # (E_l, n) int64 dof map of the element blocks M is built from: the
+    # whole table's, or this rank's ShardedDofmap on element-sharded tables
+    dofmap: Any
     free: Any            # (ndof,) bool
+    # (n_agg, m) int64 dofs of each aggregate, ascending, padded with ndof
+    members: Any
     omega: float = 0.6   # Jacobi damping
 
 
@@ -95,27 +109,55 @@ def build_aggregates(dofmap: np.ndarray, ndof: int, free: np.ndarray,
     return agg.astype(np.int32), next_id
 
 
+def aggregate_members(agg: np.ndarray, n_agg: int) -> np.ndarray:
+    """(n_agg, m) dof ids of each aggregate in ascending order, padded
+    with ``len(agg)``: the restriction becomes a gather and a sum along
+    one axis, which gives the same bits on every rank and in every run
+    (an ``index_add_`` on the card adds in the order its atomics land, so
+    ranks holding the same residual would part)."""
+    ids = np.where(agg >= 0)[0]
+    ids = ids[np.argsort(agg[ids], kind="stable")]
+    a = agg[ids].astype(np.int64)
+    counts = np.bincount(a, minlength=n_agg)
+    table = np.full((n_agg, int(counts.max(initial=0))), len(agg),
+                    dtype=np.int64)
+    starts = np.cumsum(counts) - counts
+    table[a, np.arange(len(ids)) - starts[a]] = ids
+    return table
+
+
 def make_amg_context(dofmap, ndof: int, free, target_coarse: int = 256,
-                     omega: float = 0.6, dof_coords=None,
-                     device=None) -> AmgContext:
+                     omega: float = 0.6, dof_coords=None, device=None,
+                     block_dofmap=None) -> AmgContext:
     """The aggregation of ``dofmap``'s free dofs, on ``device`` (default:
-    ``dofmap``'s device when it is a tensor, else the CPU). A (S, ndof)
-    ``free`` (the two species) aggregates the union of the masks; each
-    system's own mask is applied in :func:`two_level_precond`."""
+    the device of ``block_dofmap``, else of ``dofmap`` when it is a
+    tensor, else the CPU). A (S, ndof) ``free`` (the two species)
+    aggregates the union of the masks; each system's own mask is applied
+    in :func:`two_level_precond`. ``block_dofmap``: the dof map of the
+    element blocks :func:`two_level_precond` will receive, where it is not
+    ``dofmap`` (on element-sharded tables this rank's
+    :class:`ShardedDofmap`, with ``dofmap`` the whole table, so that every
+    rank aggregates alike)."""
+    if block_dofmap is None:
+        block_dofmap = dofmap
     if device is None:
-        device = (dofmap.device if isinstance(dofmap, torch.Tensor)
+        device = (block_dofmap.device
+                  if isinstance(block_dofmap, torch.Tensor)
                   else torch.device("cpu"))
     free = _host(free)
     if free.ndim == 2:
         free = free.any(axis=0)
-    dofmap = _host(dofmap)
-    agg, n_agg = build_aggregates(dofmap, ndof, free, target_coarse,
+    agg, n_agg = build_aggregates(_host(dofmap), ndof, free, target_coarse,
                                   dof_coords=dof_coords)
+    if not isinstance(block_dofmap, ShardedDofmap):
+        block_dofmap = torch.as_tensor(
+            _host(block_dofmap).astype(np.int64), device=device)
     return AmgContext(
         agg=torch.as_tensor(agg.astype(np.int64), device=device),
-        n_agg=n_agg,
-        dofmap=torch.as_tensor(dofmap.astype(np.int64), device=device),
-        free=torch.as_tensor(free, device=device), omega=omega)
+        n_agg=n_agg, dofmap=block_dofmap,
+        free=torch.as_tensor(free, device=device),
+        members=torch.as_tensor(aggregate_members(agg, n_agg),
+                                device=device), omega=omega)
 
 
 def two_level_precond(A_el, ctx: AmgContext, diag, free=None):
@@ -124,7 +166,8 @@ def two_level_precond(A_el, ctx: AmgContext, diag, free=None):
     Flat inputs (A_el (E, n, n), diag/free (ndof,)) or batched systems
     (A_el (S, E, n, n), diag/free (S, ndof)); the returned M applies to
     residuals of the matching shape. ``free`` defaults to the
-    aggregation's (union) mask."""
+    aggregation's (union) mask. On element-sharded tables E is this
+    rank's K_l * E_s elements, in the order of ``ctx.dofmap``."""
     free = ctx.free if free is None else free
     squeeze = A_el.ndim == 3
     A_b = A_el[None] if squeeze else A_el
@@ -144,9 +187,13 @@ def two_level_precond(A_el, ctx: AmgContext, diag, free=None):
         (torch.arange(S, device=dev)[:, None, None, None].expand(shape),
          eagg[None, :, :, None].expand(shape),
          eagg[None, :, None, :].expand(shape)), A_b, accumulate=True)
+    if isinstance(ctx.dofmap, ShardedDofmap):
+        ctx.dofmap.all_reduce(Ac)          # this rank's shards' partial sum
     Ac = Ac[:, :n_agg, :n_agg] + 1e-12 * torch.eye(n_agg, dtype=dt,
                                                    device=dev)
-    Lc = torch.linalg.cholesky(Ac)                           # batched factor
+    # batched factor of the symmetric part, as jnp.linalg.cholesky takes
+    # it (the species stage blocks carry the drift: Ac is not symmetric)
+    Lc = torch.linalg.cholesky((Ac + Ac.mT) / 2)
 
     inv_d = torch.where(free_b, ctx.omega / diag_b, 0.0)
     agg_ok = ctx.agg >= 0
@@ -158,9 +205,9 @@ def two_level_precond(A_el, ctx: AmgContext, diag, free=None):
         return torch.where(free_b, y, x)
 
     def restrict(r):
-        rc = torch.zeros((S, nc), dtype=r.dtype, device=dev)
-        rc.index_add_(1, safe, torch.where(free_b, r, 0.0))
-        return rc[:, :n_agg]
+        rz = torch.cat([torch.where(free_b, r, 0.0),
+                        r.new_zeros((S, 1))], dim=1)         # slot ndof: 0
+        return rz[:, ctx.members].sum(dim=-1)
 
     def prolong(zc):
         z = torch.where(agg_ok[None], zc[:, prolong_ix], 0.0)

@@ -35,7 +35,9 @@ tables (``run_instationary_pnp_from_pb(device_mesh=layout)``,
 vectors and K / P element shards, and each scatter ends in one
 ``all_reduce``. The coordinator writes the fields, currents, counts and
 step times, and every rank's final fields (``rank_fields``, (P, 3, ndof)),
-which replicated vectors make bitwise equal.
+which replicated vectors make bitwise equal. ``--solver`` sets its linear
+solver variant (default: the case's, ``BCGS_SSORk``; ``CG_AMG_SSOR`` needs
+a shard count that divides the element count).
 
 ``--fail-probe-on-rank R`` makes every contraction-probe verdict on rank R
 a failure (a fault injected to show that all ranks then raise together).
@@ -45,6 +47,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import os
 import socket
 import subprocess
@@ -56,6 +59,7 @@ import numpy as np
 import torch
 
 from pnp_tpu_torch import problems
+from pnp_tpu_torch.config import LINEAR_SOLVERS
 from pnp_tpu_torch.meshio.structured import rect_mesh
 from pnp_tpu_torch.fem.space import FunctionSpace
 from pnp_tpu_torch.operators import kernels as KN
@@ -93,6 +97,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--shards", type=int, default=4)
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--presolve", action="store_true")
+    ap.add_argument("--solver", choices=LINEAR_SOLVERS, default=None,
+                    help="--task sharded's linear solver variant "
+                    "(default: the case's)")
     ap.add_argument("--refresh", type=int, default=1,
                     help="ras_refresh_every")
     ap.add_argument("--pb-field", default=None,
@@ -257,6 +264,8 @@ def run_sharded(args, layout):
     tables, its own phase A included: ``(result, launches by kernel)``,
     the counts reset just before the run."""
     sys_, space = build_case(args)
+    if args.solver is not None:
+        sys_ = dataclasses.replace(sys_, linearSolver=args.solver)
     KN.reset_launch_counts()
     res = run_instationary_pnp_from_pb(
         sys_, space, n_steps=args.steps, output_dir=args.output_dir,

@@ -52,7 +52,8 @@ Poisson do carry it); quadrature orders 3 (PB/Poisson), 2 (species
 spatial), 5 (species mass); dt = tau.
 
 ``CG_AMG_SSOR`` runs CG under two-level aggregation AMG above the dense
-tier (one aggregation for phi, one for the species pair).
+tier and on element-sharded tables (one aggregation for phi, one for the
+species pair).
 
 ``device_mesh`` (K element shards, :mod:`..parallel.sharding`): the
 species and Poisson element tables (orders 2, 5 and 3) are split over the
@@ -63,8 +64,12 @@ size: the Poisson re-solve is the configured variant's Krylov solve on the
 assembled diagonal (``BCGS_SSORk``: BiCGSTAB under Chebyshev-Jacobi(3))
 and the species stages take the species Krylov path. Phase A's PB solve,
 the boundary tables and the ion flux stay unsharded. Under ranks only the
-coordinator writes outputs and checkpoints. ``CG_AMG_SSOR`` is not ported
-on it (its aggregation reads whole element tables). The owner-partitioned
+coordinator writes outputs and checkpoints. ``CG_AMG_SSOR`` runs on it
+where the shard count divides the element count (as in the reference,
+whose aggregation is of the whole, unpadded dof map; another count raises
+``ValueError``): each aggregation is of the whole dof map, the same on
+every rank, its coarse matrix the sum of the shards' partials (one
+all-reduce a preconditioner build over ranks). The owner-partitioned
 multi-device driver is
 :func:`..workloads.distributed_pnp.run_distributed_pnp_from_pb`.
 """
@@ -244,19 +249,22 @@ def build_pnp_system(
     offers it on a TPU only; here it runs on any device.
     ``device_mesh``: K element shards (a shard count, or a layout from
     ``parallel.sharding.make_device_mesh``; its device is the run's); the
-    dense tier and block-RAS are then off (see the module docstring).
+    dense tier and block-RAS are then off (see the module docstring);
+    under ``CG_AMG_SSOR`` a K that does not divide the element count
+    raises ``ValueError``.
     """
     mesh, device = element_mesh(device_mesh, device)
     tab = tableau if tableau is not None else alexander2()
     dt = sys.tau
     pi = sys.pi
     ndof = space.ndof
-    if mesh is not None and sys.linearSolver == "CG_AMG_SSOR":
-        raise NotImplementedError(
-            "CG_AMG_SSOR on element-sharded tables is not ported (its "
-            "aggregation reads whole element tables); take another solver "
-            "variant, or the owner-partitioned driver "
-            "workloads.distributed_pnp.run_distributed_pnp_from_pb")
+    if (mesh is not None and sys.linearSolver == "CG_AMG_SSOR"
+            and space.mesh.num_tris % mesh.n_shards):
+        raise ValueError(
+            f"CG_AMG_SSOR on element-sharded tables needs a shard count "
+            f"that divides the element count ({mesh.n_shards} shards, "
+            f"{space.mesh.num_tris} elements): its aggregation is of the "
+            f"whole, unpadded dof map, as in the reference")
     a_tab = [[float(v) for v in row] for row in tab.A]
     b_tab = [[float(v) for v in row] for row in tab.B]
     stages = tab.stages
@@ -316,17 +324,20 @@ def build_pnp_system(
     krylov_phi = krylov_sp = krylov
     if sys.linearSolver == "CG_AMG_SSOR" and not use_dense:
         # the AMG variant gets an aggregation on both Krylov paths, one for
-        # phi and one over the union of the species masks; the element
-        # blocks are passed at the call sites
+        # phi and one over the union of the species masks, each of the
+        # whole dof map (the same on every rank) and kept with the dof map
+        # of the (sharded) element blocks passed at the call sites
         coords = space.dof_coords
         krylov_phi = make_krylov_solver(
             sys.linearSolver, sys.linearSolverIterations,
-            amg_ctx=make_amg_context(vt_phi.dofmap, ndof, ctx_phi.free,
-                                     dof_coords=coords))
+            amg_ctx=make_amg_context(space.dofmap, ndof, ctx_phi.free,
+                                     dof_coords=coords,
+                                     block_dofmap=vt_phi.dofmap))
         krylov_sp = make_krylov_solver(
             sys.linearSolver, sys.linearSolverIterations,
-            amg_ctx=make_amg_context(vt2.dofmap, ndof, free_pair,
-                                     dof_coords=coords))
+            amg_ctx=make_amg_context(space.dofmap, ndof, free_pair,
+                                     dof_coords=coords,
+                                     block_dofmap=vt2.dofmap))
 
     M_el = V.mass_jacobian_el(vt5, 1.0, False, pi)   # planar (ref behaviour)
     A_phi_el = V.poisson_jacobian_el(vt_phi, sys.cylindrical, pi)

@@ -85,6 +85,29 @@ def test_aggregates_identical(name, coords, target):
     np.testing.assert_array_equal(tc.free.numpy(), np.asarray(jc.free))
 
 
+@pytest.mark.parametrize("coords", [True, False], ids=["morton", "greedy"])
+def test_aggregate_members(coords):
+    """The restriction's table: each aggregate's dofs once, ascending,
+    padded with ndof, every free dof in its own aggregate's row; summing
+    a residual through it equals the scatter-add over ``agg`` (exactly,
+    on integer values)."""
+    tspace, tvt, _, tfree, *_ = laplace_system("pore30x17")
+    n = tspace.ndof
+    c = tspace.dof_coords if coords else None
+    ctx = TAMG.make_amg_context(tvt.dofmap, n, tfree, 16, dof_coords=c)
+    agg, table = ctx.agg.numpy(), ctx.members.numpy()
+    assert table.shape[0] == ctx.n_agg
+    for k, row in enumerate(table):
+        ids = row[row < n]
+        assert (row[len(ids):] == n).all() and (np.diff(ids) > 0).all()
+        np.testing.assert_array_equal(ids, np.where(agg == k)[0])
+    r = np.random.RandomState(1).randint(-9, 9, n).astype(np.float64)
+    want = np.zeros(ctx.n_agg)
+    np.add.at(want, agg[agg >= 0], r[agg >= 0])
+    got = np.append(r, 0.0)[table].sum(axis=-1)
+    np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("name", ["rect24x24", "pore30x17"])
 def test_precond_apply_flat_and_batched(name):
     """M(r) to 1e-12 of the reference's on a flat system and on a (2, ndof)

@@ -74,15 +74,18 @@ def test_refine_uniform_is_a_copy(files):
 
 
 def test_native_bridge_matches_python_parser(files):
-    """The ctypes bridge to ``native/libmeshkit.so`` gives the numpy
-    parser's arrays and the reference bridge's partition; where the
-    library cannot be built or loaded, ``native_available()`` is False and
+    """The ctypes bridge to the port's own mesh kit (``csrc/meshkit.cpp``,
+    built into ``pnp_tpu_torch/_build/``) gives the numpy parser's arrays,
+    the reference bridge's arrays and its partition; where the library
+    cannot be built or loaded, ``native_available()`` is False and
     ``read_gmsh_native`` raises."""
     assert TN.native_available() == JN.native_available()
     if not TN.native_available():
         with pytest.raises(RuntimeError, match="meshkit"):
             TN.read_gmsh_native(files["msh"])
         return
+    assert TN._lib._name == str(TN.build())
+    assert TN._lib._name.startswith(str(TN.BUILD_ROOT) + os.sep)
     assert_same(TN.read_gmsh_native(files["msh"]), read_gmsh(files["msh"]))
     assert_same(TN.read_gmsh_native(files["msh"]),
                 JN.read_gmsh_native(files["msh"]))

@@ -3,11 +3,14 @@
 system refuses ``jax``, ``jaxlib`` and ``pnp_tpu`` (a ``sys.meta_path``
 finder that raises), every module of ``pnp_tpu_torch`` and the top level
 of ``chip_smoke.py`` import, and the bench's and the entry's paths run.
+No file of the port names the reference's ``native/`` directory: the port
+builds its mesh kit from its own ``csrc/meshkit.cpp``.
 ``pnp_tpu_torch/__main__.py`` is the command line itself (importing it
 runs it); ``tests/test_torch_cli.py`` runs it."""
 
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 
@@ -79,3 +82,23 @@ print("LOADED", bad)
             pnp_tpu_torch.__path__, "pnp_tpu_torch.")]
         assert {"pnp_tpu_torch.bench", "pnp_tpu_torch.entry"} <= set(names)
         assert f"IMPORTED {len(names) - 1}\n" in out     # all but __main__
+
+
+def test_port_names_no_native_directory():
+    """No file of ``pnp_tpu_torch/`` (sources, C++ and CUDA included)
+    names the JAX side's ``native/`` directory, as a path (``native/``)
+    or as a path component (``"native"``)."""
+    root = os.path.join(REPO, "pnp_tpu_torch")
+    pattern = re.compile(r"\bnative(/|[\"'])")
+    hits, seen = [], 0
+    for dirpath, dirnames, files in os.walk(root):
+        dirnames[:] = [d for d in dirnames
+                       if d not in ("_build", "__pycache__")]
+        for name in files:
+            path = os.path.join(dirpath, name)
+            with open(path, encoding="utf-8", errors="replace") as f:
+                for i, line in enumerate(f, 1):
+                    if pattern.search(line):
+                        hits.append(f"{os.path.relpath(path, REPO)}:{i}")
+            seen += 1
+    assert seen > 50 and not hits, hits

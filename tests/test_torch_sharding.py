@@ -4,21 +4,26 @@ virtual devices of tests/conftest.py, on the CPU.
 
 The case is ``one_wall_case(41, 5)`` (252 dofs, 410 triangles: 8 shards
 need 6 padded elements), built in code (tests/test_parallel.py's fixture
-reads the absent reference tree). Tolerances are tests/test_parallel.py's
-own: rtol 1e-9 / atol 1e-12 for one fused step, 1e-8 / 1e-11 over three
-scan steps.
+reads the absent reference tree); ``CG_AMG_SSOR``, which needs a shard
+count that divides the element count in both packages, runs on
+``one_wall_case(40, 5)`` (246 dofs, 400 triangles). Tolerances are
+tests/test_parallel.py's own: rtol 1e-9 / atol 1e-12 for one fused step,
+1e-8 / 1e-11 over three scan steps.
 
 - ``pad_elements`` and ``shard_volume_tables`` equal the reference's on
   the same tables; the reference's padded tables carried in by
   ``interop.volume_tables`` equal the port's own; a rank holds its rows.
 - ``build_pnp_system(device_mesh=8)``: one fused step and three scan
-  steps against the reference's sharded build under ``BCGS_SSORk`` and
-  ``BCGS_NOPREC``, and the port's K = 8 against its K = 1.
+  steps against the reference's sharded build under ``BCGS_SSORk``,
+  ``BCGS_NOPREC`` and ``CG_AMG_SSOR``, and the port's K = 8 against its
+  K = 1 (``BCGS_SSORk`` and ``CG_AMG_SSOR``).
 - 2 gloo ranks x 4 shards (``multiproc_smoke --task sharded``, started as
   tests/test_torch_distributed.py starts its ranks) against one process,
-  the ranks' final fields bitwise equal.
-- A shard count that the ranks do not divide raises; so does
-  ``CG_AMG_SSOR`` on sharded tables (not ported).
+  the ranks' final fields bitwise equal, under ``BCGS_SSORk`` and
+  ``CG_AMG_SSOR``.
+- A shard count that the ranks do not divide raises; so does, under
+  ``CG_AMG_SSOR``, one that does not divide the element count
+  (``ValueError`` in the port; the reference's build fails there too).
 """
 
 import dataclasses
@@ -54,6 +59,7 @@ torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CASE = (41, 5)
+AMG_CASE = (40, 5)                          # E = 400: K = 8 divides it
 K = 8
 STEP_TOL = dict(rtol=1e-9, atol=1e-12)      # tests/test_parallel.py
 SCAN_TOL = dict(rtol=1e-8, atol=1e-11)
@@ -77,18 +83,24 @@ def case():
 
 
 @pytest.fixture(scope="module")
-def ranks(tmp_path_factory):
-    """2 gloo ranks x 4 shards of the sharded driver, started at once
-    (the tests before it run meanwhile); a function that waits for them
-    and returns (exit code, output, the coordinator's .npz path)."""
+def amg_case():
+    return problems.one_wall_case(*AMG_CASE)
+
+
+def _launch_ranks(tmp_path_factory, case, solver):
+    """2 gloo ranks x 4 shards of the sharded driver under ``solver``,
+    started at once (the tests before them run meanwhile); a function
+    that waits for them and returns (exit code, output, the coordinator's
+    .npz path, the output directory)."""
     tmp = tmp_path_factory.mktemp("sharded")
     out = tmp / "ranks.npz"
     cmd = [sys.executable, "-m", "pnp_tpu_torch.tools.multiproc_smoke",
            "--procs", "2", "--backend", "gloo", "--device", "cpu",
            "--port", str(_free_port()), "--timeout", str(LAUNCH_TIMEOUT),
-           "--task", "sharded", "--shards", str(K), "--nx", str(CASE[0]),
-           "--ny", str(CASE[1]), "--steps", str(RANK_STEPS),
-           "--output-dir", str(tmp / "out"), "--out", str(out)]
+           "--task", "sharded", "--shards", str(K), "--nx", str(case[0]),
+           "--ny", str(case[1]), "--steps", str(RANK_STEPS),
+           "--solver", solver, "--output-dir", str(tmp / "out"),
+           "--out", str(out)]
     proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
 
@@ -98,7 +110,17 @@ def ranks(tmp_path_factory):
     return wait
 
 
-def test_pad_and_shard_tables_match_reference(case, ranks):
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    return _launch_ranks(tmp_path_factory, CASE, "BCGS_SSORk")
+
+
+@pytest.fixture(scope="module")
+def amg_ranks(tmp_path_factory):
+    return _launch_ranks(tmp_path_factory, AMG_CASE, "CG_AMG_SSOR")
+
+
+def test_pad_and_shard_tables_match_reference(case, ranks, amg_ranks):
     """The port's padding and placement equal the reference's on the same
     tables: padded rows zero (dof 0), every other row in order; the
     reference's sharded tables carried in equal the port's; rank 1 of 2
@@ -164,17 +186,21 @@ def test_scatters_sum_the_shards(case):
     assert S.replicate(S.make_device_mesh(K, "cpu"), u) is u
 
 
-@pytest.mark.parametrize("solver", ["BCGS_SSORk", "BCGS_NOPREC"])
-def test_sharded_step_matches_reference(case, solver):
+@pytest.mark.parametrize("solver", ["BCGS_SSORk", "BCGS_NOPREC",
+                                    "CG_AMG_SSOR"])
+def test_sharded_step_matches_reference(case, amg_case, solver):
     """``build_pnp_system(device_mesh=8)`` against the reference's sharded
     build on 8 virtual devices, from a zero PB field: one fused step and
     three scan steps (tests/test_parallel.py's tolerances). Both take the
-    Krylov tier (no dense tier, no block-RAS on sharded tables)."""
+    Krylov tier (no dense tier, no block-RAS on sharded tables);
+    ``CG_AMG_SSOR`` on the case whose element count 8 divides, its
+    aggregations of the whole dof map, its element blocks sharded."""
     assert len(jax.devices()) >= K
-    tsys, tspace = case
+    amg = solver == "CG_AMG_SSOR"
+    nx, ny = AMG_CASE if amg else CASE
+    tsys, tspace = amg_case if amg else case
     tsys = dataclasses.replace(tsys, linearSolver=solver)
-    jsys = j_build(jax_sysparams(tsys),
-                   JFS(rect_mesh(CASE[0], CASE[1], 5.0, 0.5), 1),
+    jsys = j_build(jax_sysparams(tsys), JFS(rect_mesh(nx, ny, 5.0, 0.5), 1),
                    device_mesh=JS.make_device_mesh(K),
                    pb_field=jnp.zeros(tspace.ndof))
     tsys_ = W.build_pnp_system(tsys, tspace, device_mesh=K,
@@ -207,15 +233,31 @@ def test_k8_matches_k1(case):
         np.testing.assert_allclose(b.numpy(), a.numpy(), **SCAN_TOL)
 
 
-def test_ranks_match_one_process(case, ranks):
-    """2 gloo ranks x 4 shards against one process at K = 8 (the run with
-    its own phase A, RANK_STEPS steps): fields and currents to RANKS_TOL
-    of max + 1, the same counts, the ranks' final fields bitwise equal,
-    the outputs written once."""
-    rc, text, out, out_dir = ranks()
+def test_amg_k8_matches_k1(amg_case):
+    """The port's K = 8 against its K = 1 under ``CG_AMG_SSOR``: the same
+    aggregations, the coarse matrix summed from 8 shards' blocks; a fused
+    step and three scan steps."""
+    tsys, tspace = amg_case
+    tsys = dataclasses.replace(tsys, linearSolver="CG_AMG_SSOR")
+    pb = np.zeros(tspace.ndof)
+    one, eight = (W.build_pnp_system(tsys, tspace, device_mesh=k,
+                                     pb_field=pb, device="cpu")
+                  for k in (1, K))
+    assert eight.poisson_tier == "krylov"
+    s1 = one.fused_step(one.uphi0, one.ucp0, one.ucm0)
+    s8 = eight.fused_step(eight.uphi0, eight.ucp0, eight.ucm0)
+    for a, b in zip(s1, s8):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), **STEP_TOL)
+    for a, b in zip(one.scan_steps(s1, 3), eight.scan_steps(s8, 3)):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), **SCAN_TOL)
+
+
+def _check_ranks(launched, case, solver):
+    rc, text, out, out_dir = launched()
     assert rc == 0, text[-4000:]
     got = np.load(out)
     tsys, tspace = case
+    tsys = dataclasses.replace(tsys, linearSolver=solver)
     one = W.run_instationary_pnp_from_pb(tsys, tspace, n_steps=RANK_STEPS,
                                          device_mesh=K, device="cpu")
     assert (int(got["n_ranks"]), int(got["n_shards"])) == (2, K)
@@ -237,15 +279,38 @@ def test_ranks_match_one_process(case, ranks):
     assert rows.shape == (RANK_STEPS, 1 + 2 * tsys.n_surfaces)
 
 
+def test_ranks_match_one_process(case, ranks):
+    """2 gloo ranks x 4 shards against one process at K = 8 (the run with
+    its own phase A, RANK_STEPS steps): fields and currents to RANKS_TOL
+    of max + 1, the same counts, the ranks' final fields bitwise equal,
+    the outputs written once."""
+    _check_ranks(ranks, case, "BCGS_SSORk")
+
+
+def test_amg_ranks_match_one_process(amg_case, amg_ranks):
+    """As above under ``CG_AMG_SSOR`` (``multiproc_smoke --solver``): each
+    rank's coarse matrices the all-reduced sum of its shards' blocks."""
+    _check_ranks(amg_ranks, amg_case, "CG_AMG_SSOR")
+
+
 def test_undivided_shards_and_amg_raise(case, monkeypatch):
     """Under 2 ranks (the group faked: building a layout needs no
     collective) 3 shards raise, None means one a rank; ``CG_AMG_SSOR`` on
-    sharded tables raises NotImplementedError."""
+    sharded tables whose element count (410) 8 does not divide raises
+    ValueError before any table is padded, and the reference's sharded
+    build fails there too, at its first step (its aggregation context
+    holds the unpadded dof map, its blocks are padded)."""
     tsys, tspace = case
-    with pytest.raises(NotImplementedError, match="CG_AMG_SSOR"):
-        W.build_pnp_system(
-            dataclasses.replace(tsys, linearSolver="CG_AMG_SSOR"), tspace,
-            device_mesh=K, pb_field=np.zeros(tspace.ndof), device="cpu")
+    amg = dataclasses.replace(tsys, linearSolver="CG_AMG_SSOR")
+    with pytest.raises(ValueError, match="divides the element count"):
+        W.build_pnp_system(amg, tspace, device_mesh=K,
+                           pb_field=np.zeros(tspace.ndof), device="cpu")
+    with pytest.raises(ValueError, match="Incompatible shapes"):
+        jsys = j_build(jax_sysparams(amg),
+                       JFS(rect_mesh(CASE[0], CASE[1], 5.0, 0.5), 1),
+                       device_mesh=JS.make_device_mesh(K),
+                       pb_field=jnp.zeros(tspace.ndof))
+        jsys.fused_step(jsys.uphi0, jsys.ucp0, jsys.ucm0)
     for name, value in (("is_initialized", True), ("get_world_size", 2),
                         ("get_rank", 1), ("get_backend", "gloo")):
         monkeypatch.setattr(PD.dist, name, lambda v=value: v)

@@ -145,8 +145,9 @@ def test_unported_tiers_raise():
     """Above the dense threshold the block-RAS tier builds, and a tableau
     whose stage diagonals differ takes the species Krylov path; the
     mid-size species tier builds where ``species_inv_threshold`` admits
-    the mesh; the option that is still unported (``CG_AMG_SSOR`` on
-    element-sharded tables) raises, naming the driver that runs it."""
+    the mesh; ``CG_AMG_SSOR`` on element-sharded tables whose element
+    count (852) the shard count (8) does not divide raises ValueError, as
+    the reference's build fails there."""
     tsys, tspace = problems.pore_case(30, 17)
     system = TW.build_pnp_system(tsys, tspace, dense_poisson_threshold=100,
                                  device="cpu")
@@ -160,8 +161,7 @@ def test_unported_tiers_raise():
     kind, X = mid.species_factor(uphi)
     assert kind == "inv" and tuple(X.shape) == (2, 488, 488)
     assert X.dtype == torch.float32
-    with pytest.raises(NotImplementedError,
-                       match="run_distributed_pnp_from_pb"):
+    with pytest.raises(ValueError, match="divides the element count"):
         TW.build_pnp_system(
             dataclasses.replace(tsys, linearSolver="CG_AMG_SSOR"), tspace,
             device_mesh=8, device="cpu")
