@@ -54,7 +54,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-freq", type=int, default=0)
     p.add_argument("--resume", action="store_true")
     p.add_argument("--profile-dir", default=None,
-                   help="write a torch.profiler Chrome trace here")
+                   help="write a torch.profiler Chrome trace here, with "
+                        "the program's spans, and spans.json beside it")
     p.add_argument("--device", default=None,
                    help="torch device (default: the current CUDA device; "
                         "'cpu' runs on the CPU)")

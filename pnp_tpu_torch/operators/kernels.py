@@ -34,7 +34,8 @@ is built or imported at module import.
 Routing: a CPU tensor takes the plain PyTorch version; a CUDA tensor
 launches the kernel or raises. There is no fallback from one to the
 other. Each wrapper adds one to ``launches[name]`` where it launches its
-kernel, and nowhere else.
+kernel, and nowhere else, and opens a ``kernels.<name>`` span
+(``utils.profiling``) with the batch ``b`` and the order ``n``.
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ import time
 
 import torch
 
+from ..utils.profiling import span
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -257,11 +259,11 @@ def _gj_core_plain(W, panel=None):
         W[:, :, k0:k0 + nb] = G
     # undo the row swaps as one column gather: out[:, j] = W[:, g[j]]
     g = torch.arange(N, device=W.device).repeat(S, 1)
-    perm_h = perm.cpu()
+    perm_h = perm.tolist()
     for s in range(S):
         gs = list(range(N))
         for r_ in range(N - 1, -1, -1):
-            p_ = int(perm_h[s, r_])
+            p_ = perm_h[s][r_]
             gs[r_], gs[p_] = gs[p_], gs[r_]
         g[s] = torch.tensor(gs, device=W.device)
     return torch.gather(W, 2, g[:, None, :].expand(S, N, N)), perm
@@ -324,7 +326,8 @@ def gj_inverse(A, equilibrate: bool = True):
     :func:`gj_inverse_plain`. Any N, S up to 65,535."""
     _check_square_f32(A)
     core = _gj_core_plain if _route(A) == "cpu" else _gj_core_cuda
-    return _equilibrated(core, A, equilibrate)
+    with span("kernels.gj_inverse", b=A.shape[0], n=A.shape[-1]):
+        return _equilibrated(core, A, equilibrate)
 
 
 def gj_inverse_plain(A, equilibrate: bool = True, panel=None):
@@ -438,9 +441,10 @@ class PBElement:
     def __call__(self, ue, outputs: str = "both"):
         out = PB_OUTPUTS[outputs]
         _check_pb_ue(ue, self.E, self.n, self.dtype, self.device)
-        if self.route == "cpu":
-            return _pb_plain(ue, *self.tables, *self.params, out)
-        return self._launch(ue, out, PB_DESIGN)
+        with span("kernels.pb_residual_jacobian", b=self.E, n=self.n):
+            if self.route == "cpu":
+                return _pb_plain(ue, *self.tables, *self.params, out)
+            return self._launch(ue, out, PB_DESIGN)
 
     def _launch(self, ue, out: int, design):
         """Launch the kernel for output code ``out`` (PB_OUTPUTS' values)

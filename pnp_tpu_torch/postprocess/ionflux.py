@@ -23,6 +23,7 @@ import torch
 from ..fem.geometry import element_jacobians, f64, index
 from ..fem.space import FunctionSpace
 from ..meshio.mesh import LOCAL_EDGES
+from ..utils.profiling import span
 
 _REF_VERTS = np.array([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0]])
 
@@ -71,17 +72,18 @@ def build_ionflux_tables(space: FunctionSpace, cylindrical: bool,
 
 def calc_ion_flux(t: IonFluxTables, phi, cp, cm, convention: str = "reference"):
     """Returns (ip, im) tensors of shape (n_surfaces,)."""
-    phie, cpe, cme = phi[t.dofmap], cp[t.dofmap], cm[t.dofmap]
-    cp_c = torch.einsum("bi,bi->b", cpe, t.shape_c)
-    cm_c = torch.einsum("bi,bi->b", cme, t.shape_c)
-    gphi = torch.einsum("bi,bia->ba", phie, t.grad_c)
-    gcp = torch.einsum("bi,bia->ba", cpe, t.grad_c)
-    gcm = torch.einsum("bi,bia->ba", cme, t.grad_c)
-    sign = 1.0 if convention == "reference" else -1.0
-    jp = -gcp + sign * cp_c[:, None] * gphi
-    jm = -gcm - sign * cm_c[:, None] * gphi
-    fp = torch.einsum("ba,ba->b", jp, t.normal) * t.weight
-    fm = torch.einsum("ba,ba->b", jm, t.normal) * t.weight
-    zeros = torch.zeros(t.n_surfaces, dtype=fp.dtype, device=fp.device)
-    return (zeros.index_add(0, t.edge_phys, fp),
-            zeros.index_add(0, t.edge_phys, fm))
+    with span("ionflux"):
+        phie, cpe, cme = phi[t.dofmap], cp[t.dofmap], cm[t.dofmap]
+        cp_c = torch.einsum("bi,bi->b", cpe, t.shape_c)
+        cm_c = torch.einsum("bi,bi->b", cme, t.shape_c)
+        gphi = torch.einsum("bi,bia->ba", phie, t.grad_c)
+        gcp = torch.einsum("bi,bia->ba", cpe, t.grad_c)
+        gcm = torch.einsum("bi,bia->ba", cme, t.grad_c)
+        sign = 1.0 if convention == "reference" else -1.0
+        jp = -gcp + sign * cp_c[:, None] * gphi
+        jm = -gcm - sign * cm_c[:, None] * gphi
+        fp = torch.einsum("ba,ba->b", jp, t.normal) * t.weight
+        fm = torch.einsum("ba,ba->b", jm, t.normal) * t.weight
+        zeros = torch.zeros(t.n_surfaces, dtype=fp.dtype, device=fp.device)
+        return (zeros.index_add(0, t.edge_phys, fp),
+                zeros.index_add(0, t.edge_phys, fm))

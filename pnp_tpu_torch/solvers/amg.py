@@ -37,6 +37,7 @@ import torch
 
 from ..fem import assembly as FA
 from ..parallel.sharding import ShardedDofmap
+from ..utils.profiling import host_read
 from .block_ras import morton_order
 
 
@@ -192,8 +193,12 @@ def two_level_precond(A_el, ctx: AmgContext, diag, free=None):
     Ac = Ac[:, :n_agg, :n_agg] + 1e-12 * torch.eye(n_agg, dtype=dt,
                                                    device=dev)
     # batched factor of the symmetric part, as jnp.linalg.cholesky takes
-    # it (the species stage blocks carry the drift: Ac is not symmetric)
-    Lc = torch.linalg.cholesky((Ac + Ac.mT) / 2)
+    # it (the species stage blocks carry the drift: Ac is not symmetric);
+    # its failure flag is the build's one host read
+    Lc, info = torch.linalg.cholesky_ex((Ac + Ac.mT) / 2)
+    if host_read((info != 0).any()):
+        raise torch.linalg.LinAlgError(
+            "two_level_precond: the coarse matrix is not positive definite")
 
     inv_d = torch.where(free_b, ctx.omega / diag_b, 0.0)
     agg_ok = ctx.agg >= 0
@@ -217,7 +222,11 @@ def two_level_precond(A_el, ctx: AmgContext, diag, free=None):
         rb = r[None] if squeeze else r
         z = inv_d * rb                                       # pre-smooth
         resid = rb - apply_A(z)
-        zc = torch.cholesky_solve(restrict(resid)[..., None], Lc)[..., 0]
+        # two triangular solves, as jax.scipy's cho_solve (cholesky_solve
+        # would read an error flag back on the CPU)
+        y = torch.linalg.solve_triangular(Lc, restrict(resid)[..., None],
+                                          upper=False)
+        zc = torch.linalg.solve_triangular(Lc.mT, y, upper=True)[..., 0]
         z = z + prolong(zc)                                  # coarse correction
         z = z + inv_d * (rb - apply_A(z))                    # post-smooth
         out = torch.where(free_b, z, rb)

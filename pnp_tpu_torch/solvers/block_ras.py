@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..fem.geometry import index
+from ..utils.profiling import host_copy, host_read, span
 from .direct import batched_inv_f32
 
 F32 = torch.float32
@@ -250,7 +251,8 @@ def build_local_inverses(ctx: BlockContext, A_el, free,
 
 
 def make_ras_precond(ctx: BlockContext, inv, free, restricted: bool = True):
-    """M(r): gather -> batched f32 matvec -> owner-restricted scatter.
+    """M(r): gather -> batched f32 matvec -> owner-restricted scatter, in
+    a ``ras.local`` span.
 
     ``inv``: (K, L, L) or (S, K, L, L) f32 local inverses. Accepts flat
     (ndof,) or batched (S, ndof) residuals. Identity on constrained dofs.
@@ -261,21 +263,23 @@ def make_ras_precond(ctx: BlockContext, inv, free, restricted: bool = True):
     l2g = ctx.loc2glob.reshape(-1)
 
     def precond(r):
-        squeeze = r.ndim == 1
-        rb = r[None] if squeeze else r                  # (S, ndof)
-        fb = free[None] if free.ndim == 1 else free
-        S = rb.shape[0]
-        r_loc = _gather_padded(ctx, torch.where(fb, rb, 0.0))   # (S, K, L)
-        iv = inv[None] if inv.ndim == 3 else inv
-        iv = iv.expand((S,) + iv.shape[1:])
-        z = torch.matmul(iv, r_loc.to(F32)[..., None])[..., 0].to(rb.dtype)
-        out = rb.new_zeros((S, ctx.ndof + 1))
-        if restricted:
-            out.index_add_(1, own, z[:, :, :ctx.B].reshape(S, -1))
-        else:
-            out.index_add_(1, l2g, z.reshape(S, -1))
-        out = torch.where(fb, out[:, :ctx.ndof], rb)
-        return out[0] if squeeze else out
+        with span("ras.local"):
+            squeeze = r.ndim == 1
+            rb = r[None] if squeeze else r              # (S, ndof)
+            fb = free[None] if free.ndim == 1 else free
+            S = rb.shape[0]
+            r_loc = _gather_padded(ctx, torch.where(fb, rb, 0.0))  # (S, K, L)
+            iv = inv[None] if inv.ndim == 3 else inv
+            iv = iv.expand((S,) + iv.shape[1:])
+            z = torch.matmul(iv, r_loc.to(F32)[..., None])[..., 0].to(
+                rb.dtype)
+            out = rb.new_zeros((S, ctx.ndof + 1))
+            if restricted:
+                out.index_add_(1, own, z[:, :, :ctx.B].reshape(S, -1))
+            else:
+                out.index_add_(1, l2g, z.reshape(S, -1))
+            out = torch.where(fb, out[:, :ctx.ndof], rb)
+            return out[0] if squeeze else out
 
     return precond
 
@@ -283,7 +287,7 @@ def make_ras_precond(ctx: BlockContext, inv, free, restricted: bool = True):
 def _block_frame(ctx: BlockContext, dof_coords):
     """Block-centred, span-scaled dof coordinates (ndof, 2) (host)."""
     K = ctx.K
-    owner = ctx.owner.cpu().numpy()
+    owner = host_copy(ctx.owner)
     coords = np.asarray(dof_coords)
     cent = np.zeros((K, 2))
     cnt = np.zeros(K)
@@ -299,12 +303,16 @@ def _block_frame(ctx: BlockContext, dof_coords):
 def _regularized_inverse(Ac):
     """Empty or degenerate coarse modes (all-Dirichlet blocks, collinear
     free dofs) get identity-ish rows; then an f32 inverse, off any
-    kernel of this repository (the reference uses ``jnp.linalg.inv``)."""
+    kernel of this repository (the reference uses ``jnp.linalg.inv``),
+    whose failure flag is one host read."""
     d = torch.diagonal(Ac, dim1=-2, dim2=-1)
     scale = d.abs().amax(dim=-1, keepdim=True) + 1.0
     Ac = Ac + torch.diag_embed(torch.where(d.abs() > 1e-9 * scale,
                                            1e-6 * d.abs(), 1.0))
-    return torch.linalg.inv(Ac)
+    inv, info = torch.linalg.inv_ex(Ac)
+    if host_read((info != 0).any()):
+        raise torch.linalg.LinAlgError("the p1 coarse matrix is singular")
+    return inv
 
 
 def build_p1_coarse(ctx: BlockContext, A_el, dofmap, free, dof_coords,
@@ -328,7 +336,7 @@ def build_p1_coarse(ctx: BlockContext, A_el, dofmap, free, dof_coords,
     if M == 6:
         p2 = 0.5 * (3.0 * xs * xs - 1.0)                # Legendre P2
         cols += [p2[:, :1], (xs[:, :1] * xs[:, 1:]), p2[:, 1:]]
-    free_np = free.cpu().numpy()
+    free_np = host_copy(free)
     w3_np = np.concatenate(cols, axis=1) * free_np[:, None]    # (ndof, M)
     # coarse dof of (dof, mode); constrained dofs -> drop row MK
     idx3_np = np.where(free_np[:, None], owner[:, None] * M + np.arange(M),
@@ -359,7 +367,7 @@ def build_p1_coarse_batched(ctx: BlockContext, A_el, dofmap, free,
     dev = A_el.device
     owner, xs = _block_frame(ctx, dof_coords)
     base3 = np.concatenate([np.ones((ndof, 1)), xs], axis=1)   # (ndof, 3)
-    free_np = free.cpu().numpy()                                # (S, ndof)
+    free_np = host_copy(free)                                # (S, ndof)
     w3_np = base3[None] * free_np[:, :, None]                   # (S, ndof, 3)
     idx3_np = np.where(free_np[:, :, None],
                        owner[None, :, None] * 3 + np.arange(3)[None, None],
@@ -380,7 +388,8 @@ def build_p1_coarse_batched(ctx: BlockContext, A_el, dofmap, free,
 
 
 def make_p1_coarse_correction(ctx: BlockContext, p1_coarse, free):
-    """r -> P Ac^-1 R r for the piecewise-polynomial coarse level.
+    """r -> P Ac^-1 R r for the piecewise-polynomial coarse level, in a
+``ras.coarse`` span.
 
     Takes the flat tables of :func:`build_p1_coarse` (shared across a
     batch) or the per-system tables of :func:`build_p1_coarse_batched`.
@@ -407,18 +416,19 @@ def make_p1_coarse_correction(ctx: BlockContext, p1_coarse, free):
             assert S == w3.shape[0], (
                 "batched p1-coarse tables need a matching (S, ndof) "
                 f"residual batch: got {S} vs S={w3.shape[0]}")
-        wo = (w_own if batched_tables else w_own[None]).to(rb.dtype)
-        wo = wo.expand(S, K, B, M)
-        rb_ext = torch.cat([rb, rb.new_zeros((S, 1))], dim=1)
-        r_own = rb_ext[:, own]                          # (S, K, B)
-        rc = torch.einsum("skb,skbm->skm", r_own, wo).reshape(S, K3)
-        ci = (cinv if cinv.ndim == 3 else cinv[None]).to(rb.dtype)
-        zc = torch.matmul(ci.expand(S, K3, K3), rc[..., None])[..., 0]
-        z_own = torch.einsum("skm,skbm->skb", zc.reshape(S, K, M), wo)
-        z = rb.new_zeros((S, ctx.ndof + 1))
-        z[:, own.reshape(-1)] = z_own.reshape(S, -1)
-        z = torch.where(free, z[:, :ctx.ndof], 0.0)
-        return z[0] if r.ndim == 1 else z
+        with span("ras.coarse"):
+            wo = (w_own if batched_tables else w_own[None]).to(rb.dtype)
+            wo = wo.expand(S, K, B, M)
+            rb_ext = torch.cat([rb, rb.new_zeros((S, 1))], dim=1)
+            r_own = rb_ext[:, own]                      # (S, K, B)
+            rc = torch.einsum("skb,skbm->skm", r_own, wo).reshape(S, K3)
+            ci = (cinv if cinv.ndim == 3 else cinv[None]).to(rb.dtype)
+            zc = torch.matmul(ci.expand(S, K3, K3), rc[..., None])[..., 0]
+            z_own = torch.einsum("skm,skbm->skb", zc.reshape(S, K, M), wo)
+            z = rb.new_zeros((S, ctx.ndof + 1))
+            z[:, own.reshape(-1)] = z_own.reshape(S, -1)
+            z = torch.where(free, z[:, :ctx.ndof], 0.0)
+            return z[0] if r.ndim == 1 else z
 
     return coarse
 

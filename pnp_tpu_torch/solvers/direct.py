@@ -10,7 +10,9 @@ f64 element-block operator:
     x_{k+1} = x_k + X_f32 (b - A_f64 x_k)
 
 Each refinement step cuts the error by about kappa(A) * eps_f32. The
-refinement loop checks its residual on the host once per step.
+refinement loop checks its residual on the host once per step (through
+``utils.profiling.host_read``); each refinement solve is a
+``direct.refine`` span with its ``refinements``.
 :func:`make_lu_refine_solver` is the same loop on f32 LU factors
 (``torch.linalg.lu_factor``; the reference uses ``jax.scipy`` LU there).
 The very-large Poisson tier keeps its one (ndof, ndof) inverse in the
@@ -25,6 +27,7 @@ import torch
 
 from ..fem import assembly as FA
 from ..operators import kernels as K
+from ..utils.profiling import host_read, span
 
 # contraction-probe failures in this process: batched_inv_f32 raises on one,
 # inv_f32_setup_large and the mid-size species factor return the verdict;
@@ -61,7 +64,7 @@ def contraction_ok(A32, X) -> bool:
     """Two-step refinement contraction verdict for an (S, N, N) inverse:
     every matrix passes :func:`contraction_verdicts`. One diverging matrix
     among S fails the batch."""
-    return bool(contraction_verdicts(A32, X).all())
+    return host_read(contraction_verdicts(A32, X).all())
 
 
 def batched_inv_f32(A_dense, batch_names=("matrix",), batch_shape=None,
@@ -81,7 +84,7 @@ def batched_inv_f32(A_dense, batch_names=("matrix",), batch_shape=None,
     n_failed = (~ok).sum().to(torch.float64)
     if reduce is not None:
         n_failed = reduce(n_failed)
-    if float(n_failed) > 0:
+    if host_read(n_failed) > 0:
         probe_failures["count"] += 1
         shape = tuple(batch_shape) if batch_shape else (A32.shape[0],)
         bad = [dict(zip(batch_names, (int(i) for i in ix)))
@@ -170,7 +173,7 @@ def inv_f32_setup_large(A_eq32, s32, op_probe):
         nb = torch.linalg.vector_norm(b, dim=-1)
         nr2 = torch.linalg.vector_norm(b - op_probe(x2), dim=-1)
         ok = ok & torch.all(torch.isfinite(nr2) & (nr2 <= 0.25 * nb))
-    ok = bool(ok)
+    ok = host_read(ok)
     if not ok:
         probe_failures["count"] += 1
     return X_eq, ok
@@ -186,21 +189,24 @@ def make_inv_refine_solver_arg(A_el, dofmap, ndof: int, free,
     op = FA.make_constrained_operator_batched(A_el, dofmap, ndof, free)
 
     def solve(Ainv, r, reduction: float):
-        norm0 = torch.sqrt(torch.sum(r * r, dim=-1, keepdim=True))
-        tol = reduction * torch.clamp_min(norm0, 1e-300)
-        # the first two refinements always run (as the reference unrolls them)
-        x = scaled_inv_apply(Ainv, r)
-        x = x + scaled_inv_apply(Ainv, r - op(x))
-        rk = r - op(x)
-        k = 2
-        while k < maxrefine:
-            nk = torch.sqrt(torch.sum(rk * rk, dim=-1, keepdim=True))
-            diverged = ~torch.all(torch.isfinite(nk))
-            if not bool(torch.any(nk > tol) | diverged):
-                break
-            x = x + scaled_inv_apply(Ainv, rk)
+        with span("direct.refine") as sp:
+            norm0 = torch.sqrt(torch.sum(r * r, dim=-1, keepdim=True))
+            tol = reduction * torch.clamp_min(norm0, 1e-300)
+            # the first two refinements always run (as the reference
+            # unrolls them)
+            x = scaled_inv_apply(Ainv, r)
+            x = x + scaled_inv_apply(Ainv, r - op(x))
             rk = r - op(x)
-            k += 1
+            k = 2
+            while k < maxrefine:
+                nk = torch.sqrt(torch.sum(rk * rk, dim=-1, keepdim=True))
+                diverged = ~torch.all(torch.isfinite(nk))
+                if not host_read(torch.any(nk > tol) | diverged):
+                    break
+                x = x + scaled_inv_apply(Ainv, rk)
+                rk = r - op(x)
+                k += 1
+            sp.set(refinements=k)
         return x, k
 
     return solve
@@ -230,19 +236,21 @@ def make_lu_refine_solver(lu_piv, A_el, dofmap, ndof: int, free,
         return d[..., 0].to(rk.dtype)
 
     def solve(r, reduction: float):
-        norm0 = torch.sqrt(torch.sum(r * r, dim=-1, keepdim=True))
-        tol = reduction * torch.clamp_min(norm0, 1e-300)
-        x = lu_apply(r)
-        rk = r - op(x)
-        k = 1
-        while k < maxrefine:
-            nk = torch.sqrt(torch.sum(rk * rk, dim=-1, keepdim=True))
-            diverged = ~torch.all(torch.isfinite(nk))
-            if not bool(torch.any(nk > tol) | diverged):
-                break
-            x = x + lu_apply(rk)
+        with span("direct.refine") as sp:
+            norm0 = torch.sqrt(torch.sum(r * r, dim=-1, keepdim=True))
+            tol = reduction * torch.clamp_min(norm0, 1e-300)
+            x = lu_apply(r)
             rk = r - op(x)
-            k += 1
+            k = 1
+            while k < maxrefine:
+                nk = torch.sqrt(torch.sum(rk * rk, dim=-1, keepdim=True))
+                diverged = ~torch.all(torch.isfinite(nk))
+                if not host_read(torch.any(nk > tol) | diverged):
+                    break
+                x = x + lu_apply(rk)
+                rk = r - op(x)
+                k += 1
+            sp.set(refinements=k)
         return x, k
 
     return solve

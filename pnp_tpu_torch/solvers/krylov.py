@@ -2,8 +2,10 @@
 
 The reference runs each solver as one ``lax.while_loop``; here it is a
 Python loop whose convergence test reads the residual norm on the host
-(one device sync per iteration — logged in ROADMAP as the first
-performance target).
+(one device sync per iteration, through ``utils.profiling.host_read`` —
+logged in ROADMAP as the first performance target). Each solve is a
+``krylov.cg`` or ``krylov.bicgstab`` span with its ``iterations`` and
+``converged``.
 
 Vectors may be (S, N): S independent systems advanced together, dots
 reducing over the last axis, until every system converges. Termination:
@@ -22,6 +24,8 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+
+from ..utils.profiling import host_read, span
 
 Op = Callable[[torch.Tensor], torch.Tensor]
 
@@ -53,63 +57,69 @@ def _nz(x):
 
 
 def _unconverged(r, tol, reduce) -> bool:
-    return bool(torch.any(_norm(r, reduce) > tol))
+    return host_read(torch.any(_norm(r, reduce) > tol))
 
 
 def _result(x, r, k, norm0, reduction, reduce) -> KrylovResult:
     relres = (_norm(r, reduce) / torch.clamp_min(norm0, 1e-300))[..., 0]
     return KrylovResult(x=x, iterations=k, relres=relres,
-                        converged=bool(torch.all(relres <= reduction)))
+                        converged=host_read(torch.all(relres <= reduction)))
 
 
 def cg(op: Op, b, x0, precond: Op | None = None, reduction: float = 1e-8,
        maxiter: int = 5000, reduce=None) -> KrylovResult:
     """Preconditioned conjugate gradients (SPD operator + preconditioner)."""
-    M = precond if precond is not None else (lambda r: r)
-    r = b - op(x0)
-    z = M(r)
-    norm0 = _norm(r, reduce)
-    tol = reduction * torch.clamp_min(norm0, 1e-300)
-    x, p, k, rz = x0, z, 0, _dot(r, z, reduce)
-    while k < maxiter and _unconverged(r, tol, reduce):
-        Ap = op(p)
-        alpha = rz / _nz(_dot(p, Ap, reduce))
-        x = x + alpha * p
-        r = r - alpha * Ap
+    with span("krylov.cg") as sp:
+        M = precond if precond is not None else (lambda r: r)
+        r = b - op(x0)
         z = M(r)
-        rz_new = _dot(r, z, reduce)
-        beta = rz_new / _nz(rz)
-        p = z + beta * p
-        rz = rz_new
-        k += 1
-    return _result(x, r, k, norm0, reduction, reduce)
+        norm0 = _norm(r, reduce)
+        tol = reduction * torch.clamp_min(norm0, 1e-300)
+        x, p, k, rz = x0, z, 0, _dot(r, z, reduce)
+        while k < maxiter and _unconverged(r, tol, reduce):
+            Ap = op(p)
+            alpha = rz / _nz(_dot(p, Ap, reduce))
+            x = x + alpha * p
+            r = r - alpha * Ap
+            z = M(r)
+            rz_new = _dot(r, z, reduce)
+            beta = rz_new / _nz(rz)
+            p = z + beta * p
+            rz = rz_new
+            k += 1
+        res = _result(x, r, k, norm0, reduction, reduce)
+        sp.set(iterations=k, converged=res.converged)
+    return res
 
 
 def bicgstab(op: Op, b, x0, precond: Op | None = None,
              reduction: float = 1e-8, maxiter: int = 5000,
              reduce=None) -> KrylovResult:
     """Preconditioned BiCGSTAB (van der Vorst), right-preconditioned form."""
-    M = precond if precond is not None else (lambda r: r)
-    r = b - op(x0)
-    norm0 = _norm(r, reduce)
-    tol = reduction * torch.clamp_min(norm0, 1e-300)
-    rhat = r
-    one = torch.ones_like(norm0)
-    x, p, v = x0, torch.zeros_like(b), torch.zeros_like(b)
-    rho, alpha, omega, k = one, one, one, 0
-    while k < maxiter and _unconverged(r, tol, reduce):
-        rho_new = _dot(rhat, r, reduce)
-        beta = (rho_new / _nz(rho)) * (alpha / _nz(omega))
-        p = r + beta * (p - omega * v)
-        phat = M(p)
-        v = op(phat)
-        alpha = rho_new / _nz(_dot(rhat, v, reduce))
-        s = r - alpha * v
-        shat = M(s)
-        t = op(shat)
-        omega = _dot(t, s, reduce) / _nz(_dot(t, t, reduce))
-        x = x + alpha * phat + omega * shat
-        r = s - omega * t
-        rho = rho_new
-        k += 1
-    return _result(x, r, k, norm0, reduction, reduce)
+    with span("krylov.bicgstab") as sp:
+        M = precond if precond is not None else (lambda r: r)
+        r = b - op(x0)
+        norm0 = _norm(r, reduce)
+        tol = reduction * torch.clamp_min(norm0, 1e-300)
+        rhat = r
+        one = torch.ones_like(norm0)
+        x, p, v = x0, torch.zeros_like(b), torch.zeros_like(b)
+        rho, alpha, omega, k = one, one, one, 0
+        while k < maxiter and _unconverged(r, tol, reduce):
+            rho_new = _dot(rhat, r, reduce)
+            beta = (rho_new / _nz(rho)) * (alpha / _nz(omega))
+            p = r + beta * (p - omega * v)
+            phat = M(p)
+            v = op(phat)
+            alpha = rho_new / _nz(_dot(rhat, v, reduce))
+            s = r - alpha * v
+            shat = M(s)
+            t = op(shat)
+            omega = _dot(t, s, reduce) / _nz(_dot(t, t, reduce))
+            x = x + alpha * phat + omega * shat
+            r = s - omega * t
+            rho = rho_new
+            k += 1
+        res = _result(x, r, k, norm0, reduction, reduce)
+        sp.set(iterations=k, converged=res.converged)
+    return res

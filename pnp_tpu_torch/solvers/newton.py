@@ -23,6 +23,8 @@ from typing import Any, Callable
 
 import torch
 
+from ..utils.profiling import host_read
+
 
 @dataclasses.dataclass(frozen=True)
 class NewtonParams:
@@ -51,7 +53,7 @@ class NewtonResult:
 
 def _defect(r, reduce=None) -> float:
     s = torch.dot(r, r)
-    return float(torch.sqrt(s if reduce is None else reduce(s)))
+    return host_read(torch.sqrt(s if reduce is None else reduce(s)))
 
 
 def newton_solve(

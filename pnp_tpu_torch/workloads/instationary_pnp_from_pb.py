@@ -51,6 +51,14 @@ weight even in cylindrical runs (src/diffusion_operator.hh:100; PB and
 Poisson do carry it); quadrature orders 3 (PB/Poisson), 2 (species
 spatial), 5 (species mass); dt = tau.
 
+Spans (``utils.profiling``, recorded inside ``recording()``):
+``pnp.setup.phase_a``/``_b``/``_c`` in :func:`build_pnp_system`,
+``pnp.species_factor``, ``pnp.species_step`` (its ``iterations``) and
+``pnp.poisson_solve`` (its ``tier`` and ``iterations``) around the
+system's callables, ``pnp.step`` (its ``step``), ``pnp.output`` and
+``pnp.checkpoint`` in the run loop, whose host copies and finiteness
+guard go through ``host_copy`` and ``host_read``.
+
 ``CG_AMG_SSOR`` runs CG under two-level aggregation AMG above the dense
 tier and on element-sharded tables (one aggregation for phi, one for the
 species pair).
@@ -81,7 +89,6 @@ import os
 import time as _time
 from typing import Any, Callable, Optional
 
-import numpy as np
 import torch
 
 from ..config import Sysparams
@@ -107,6 +114,7 @@ from ..parallel.distributed import RankLayout, as_layout, is_coordinator
 from ..parallel.sharding import (make_device_mesh, replicate,
                                  shard_volume_tables)
 from ..utils.device import resolve_device
+from ..utils.profiling import host_copy, host_read, span
 from .common import make_scalar_context
 from .pb import solve_pb
 
@@ -117,10 +125,6 @@ F64 = torch.float64
 #: equilibrated and unscaled inside kernel 1's wrapper); above it, up to
 #: ``poisson_inv_threshold``, the very-large tier keeps the inverse scaled
 POISSON_INV_MAX_DOFS = 16384
-
-
-def _host(t) -> np.ndarray:
-    return t.detach().cpu().numpy()
 
 
 def _spectral_probe(ndof: int, device):
@@ -285,145 +289,149 @@ def build_pnp_system(
     species_two_level = species_two_level and use_block_ras
 
     # ---- Phase A: PB bootstrap ------------------------------------------
-    t0 = _time.perf_counter()
-    if pb_field is None:
-        pb_res = solve_pb(sys, space, device=device)
-        pb, pb_iters = pb_res.u, pb_res.iterations
-    else:
-        pb, pb_iters = torch.as_tensor(pb_field, dtype=F64, device=device), 0
-    if mesh is not None:
-        pb = replicate(mesh, pb)
-    _sync(device)
-    pb_seconds = _time.perf_counter() - t0
+    with span("pnp.setup.phase_a"):
+        t0 = _time.perf_counter()
+        if pb_field is None:
+            pb_res = solve_pb(sys, space, device=device)
+            pb, pb_iters = pb_res.u, pb_res.iterations
+        else:
+            pb = torch.as_tensor(pb_field, dtype=F64, device=device)
+            pb_iters = 0
+        if mesh is not None:
+            pb = replicate(mesh, pb)
+        _sync(device)
+        pb_seconds = _time.perf_counter() - t0
 
     # ---- Phase B: constraints + initial fields --------------------------
-    ctx_phi = make_scalar_context(sys, space, component=0, quad_order=3,
-                                  device=device)
-    if mesh is not None:
-        ctx_phi = dataclasses.replace(ctx_phi, flux_vector=replicate(
-            mesh, ctx_phi.flux_vector))
-    masks = [torch.as_tensor(C.free_dof_mask(space, sys, c), device=device)
-             for c in (1, 2)]
-    free_pair = torch.stack(masks)                          # (2, ndof)
-    g_pair = torch.stack([f64(C.dirichlet_dof_values(space, sys, c), device)
-                          for c in (1, 2)])
-    pb_np = _host(pb)
-    uphi0, ucp0, ucm0 = (
-        f64(C.interpolate_with_pb_fallback(space, sys, c, pb_np), device)
-        for c in (0, 1, 2))
+    with span("pnp.setup.phase_b"):
+        ctx_phi = make_scalar_context(sys, space, component=0, quad_order=3,
+                                      device=device)
+        if mesh is not None:
+            ctx_phi = dataclasses.replace(ctx_phi, flux_vector=replicate(
+                mesh, ctx_phi.flux_vector))
+        masks = [torch.as_tensor(C.free_dof_mask(space, sys, c), device=device)
+                 for c in (1, 2)]
+        free_pair = torch.stack(masks)                          # (2, ndof)
+        g_pair = torch.stack([f64(C.dirichlet_dof_values(space, sys, c),
+                                  device) for c in (1, 2)])
+        pb_np = host_copy(pb)
+        uphi0, ucp0, ucm0 = (
+            f64(C.interpolate_with_pb_fallback(space, sys, c, pb_np), device)
+            for c in (0, 1, 2))
 
     # ---- Phase C: operators + the Poisson setup --------------------------
-    # species orders 2 (spatial) / 5 (mass), raised with the space degree
-    vt2 = build_volume_tables(space, max(2, 2 * space.degree), device)
-    vt5 = build_volume_tables(space, max(5, 2 * space.degree + 1), device)
-    vt_phi = ctx_phi.vt
-    if mesh is not None:
-        vt2, vt5, vt_phi = (shard_volume_tables(vt, mesh)
-                            for vt in (vt2, vt5, vt_phi))
+    with span("pnp.setup.phase_c"):
+        # species orders 2 (spatial) / 5 (mass), raised with the space degree
+        vt2 = build_volume_tables(space, max(2, 2 * space.degree), device)
+        vt5 = build_volume_tables(space, max(5, 2 * space.degree + 1), device)
+        vt_phi = ctx_phi.vt
+        if mesh is not None:
+            vt2, vt5, vt_phi = (shard_volume_tables(vt, mesh)
+                                for vt in (vt2, vt5, vt_phi))
 
-    krylov_phi = krylov_sp = krylov
-    if sys.linearSolver == "CG_AMG_SSOR" and not use_dense:
-        # the AMG variant gets an aggregation on both Krylov paths, one for
-        # phi and one over the union of the species masks, each of the
-        # whole dof map (the same on every rank) and kept with the dof map
-        # of the (sharded) element blocks passed at the call sites
-        coords = space.dof_coords
-        krylov_phi = make_krylov_solver(
-            sys.linearSolver, sys.linearSolverIterations,
-            amg_ctx=make_amg_context(space.dofmap, ndof, ctx_phi.free,
-                                     dof_coords=coords,
-                                     block_dofmap=vt_phi.dofmap))
-        krylov_sp = make_krylov_solver(
-            sys.linearSolver, sys.linearSolverIterations,
-            amg_ctx=make_amg_context(space.dofmap, ndof, free_pair,
-                                     dof_coords=coords,
-                                     block_dofmap=vt2.dofmap))
+        krylov_phi = krylov_sp = krylov
+        if sys.linearSolver == "CG_AMG_SSOR" and not use_dense:
+            # the AMG variant gets an aggregation on both Krylov paths, one for
+            # phi and one over the union of the species masks, each of the
+            # whole dof map (the same on every rank) and kept with the dof map
+            # of the (sharded) element blocks passed at the call sites
+            coords = space.dof_coords
+            krylov_phi = make_krylov_solver(
+                sys.linearSolver, sys.linearSolverIterations,
+                amg_ctx=make_amg_context(space.dofmap, ndof, ctx_phi.free,
+                                         dof_coords=coords,
+                                         block_dofmap=vt_phi.dofmap))
+            krylov_sp = make_krylov_solver(
+                sys.linearSolver, sys.linearSolverIterations,
+                amg_ctx=make_amg_context(space.dofmap, ndof, free_pair,
+                                         dof_coords=coords,
+                                         block_dofmap=vt2.dofmap))
 
-    M_el = V.mass_jacobian_el(vt5, 1.0, False, pi)   # planar (ref behaviour)
-    A_phi_el = V.poisson_jacobian_el(vt_phi, sys.cylindrical, pi)
-    op_phi = FA.make_constrained_operator(A_phi_el, vt_phi.dofmap, ndof,
-                                          ctx_phi.free)
-    ctx_ras = solve_phi_inv = lam_phi = lam_species = None
-    t0 = _time.perf_counter()
-    if use_dense:
-        poisson_tier = "dense"
-        A_phi_dense = FA.dense_constrained_matrix(A_phi_el, vt_phi.dofmap,
+        M_el = V.mass_jacobian_el(vt5, 1.0, False, pi)  # planar (as the ref)
+        A_phi_el = V.poisson_jacobian_el(vt_phi, sys.cylindrical, pi)
+        op_phi = FA.make_constrained_operator(A_phi_el, vt_phi.dofmap, ndof,
+                                              ctx_phi.free)
+        ctx_ras = solve_phi_inv = lam_phi = lam_species = None
+        t0 = _time.perf_counter()
+        if use_dense:
+            poisson_tier = "dense"
+            A_phi_dense = FA.dense_constrained_matrix(A_phi_el, vt_phi.dofmap,
+                                                      ndof, ctx_phi.free)
+            # charge coupling: the Poisson residual is affine in w = cm - cp,
+            # r = A u + M4 w + flux; M4 dense with Dirichlet rows zeroed
+            M4_el = V.mass_jacobian_el(vt_phi, 4.0 * sys.l_b * pi,
+                                       sys.cylindrical, pi)
+            M4_dense = torch.zeros((ndof, ndof), dtype=F64, device=device)
+            E_phi, n_phi = vt_phi.dofmap.shape
+            M4_dense.index_put_(
+                (vt_phi.dofmap[:, :, None].expand(E_phi, n_phi, n_phi),
+                 vt_phi.dofmap[:, None, :].expand(E_phi, n_phi, n_phi)),
+                M4_el, accumulate=True)
+            M4_dense = M4_dense * ctx_phi.free.to(F64)[:, None]
+            u_bc = torch.where(ctx_phi.free, 0.0, ctx_phi.dirichlet)
+            rhs_bc = ctx_phi.constrain(FA.spmv(A_phi_el, u_bc, vt_phi.dofmap,
+                                               ndof) + ctx_phi.flux_vector)
+            # phi* = q + P (cm - cp),  P = -Ainv M4,  q = u_bc - Ainv r(u_bc):
+            # exact for any current phi (the decoupled Poisson operator is
+            # constant). One-time f64 inverse, outside any kernel (as in the
+            # reference).
+            Ainv = torch.linalg.inv(A_phi_dense)
+            poisson_pre = (-(Ainv @ M4_dense), u_bc - Ainv @ rhs_bc)
+            del Ainv, A_phi_dense, M4_dense
+        elif not use_block_ras:
+            # another solver variant above the dense tier: its Krylov solve on
+            # the assembled diagonal, lambda_max(D^-1 A) estimated once (the
+            # operator is constant) with 1.2 headroom
+            poisson_tier = "krylov"
+            poisson_pre = FA.constrained_diagonal(A_phi_el, vt_phi.dofmap,
                                                   ndof, ctx_phi.free)
-        # charge coupling: the Poisson residual is affine in w = cm - cp,
-        # r = A u + M4 w + flux; M4 dense with Dirichlet rows zeroed
-        M4_el = V.mass_jacobian_el(vt_phi, 4.0 * sys.l_b * pi,
-                                   sys.cylindrical, pi)
-        M4_dense = torch.zeros((ndof, ndof), dtype=F64, device=device)
-        E_phi, n_phi = vt_phi.dofmap.shape
-        M4_dense.index_put_(
-            (vt_phi.dofmap[:, :, None].expand(E_phi, n_phi, n_phi),
-             vt_phi.dofmap[:, None, :].expand(E_phi, n_phi, n_phi)),
-            M4_el, accumulate=True)
-        M4_dense = M4_dense * ctx_phi.free.to(F64)[:, None]
-        u_bc = torch.where(ctx_phi.free, 0.0, ctx_phi.dirichlet)
-        rhs_bc = ctx_phi.constrain(FA.spmv(A_phi_el, u_bc, vt_phi.dofmap,
-                                           ndof) + ctx_phi.flux_vector)
-        # phi* = q + P (cm - cp),  P = -Ainv M4,  q = u_bc - Ainv r(u_bc):
-        # exact for any current phi (the decoupled Poisson operator is
-        # constant). One-time f64 inverse, outside any kernel (as in the
-        # reference).
-        Ainv = torch.linalg.inv(A_phi_dense)
-        poisson_pre = (-(Ainv @ M4_dense), u_bc - Ainv @ rhs_bc)
-        del Ainv, A_phi_dense, M4_dense
-    elif not use_block_ras:
-        # another solver variant above the dense tier: its Krylov solve on
-        # the assembled diagonal, lambda_max(D^-1 A) estimated once (the
-        # operator is constant) with 1.2 headroom
-        poisson_tier = "krylov"
-        poisson_pre = FA.constrained_diagonal(A_phi_el, vt_phi.dofmap, ndof,
-                                              ctx_phi.free)
-        lam_phi = 1.2 * estimate_dinv_spectral_radius(
-            op_phi, poisson_pre, _spectral_probe(ndof, device))
-    else:
-        ctx_ras = BR.build_block_context_for_space(space, ras_block_size,
-                                                   device)
-        poisson_pre = None
-        if ndof <= min(poisson_inv_threshold, POISSON_INV_MAX_DOFS):
-            # mid-size tier: one f32 inverse of the constant operator
-            # (kernel 1 + the probe); every 1e-10 re-solve is an
-            # f64-residual refinement with it
-            poisson_tier = "inverse"
-            A32 = FA.dense_constrained_matrix(A_phi_el.to(F32),
-                                              vt_phi.dofmap, ndof,
-                                              ctx_phi.free)
-            poisson_pre = inv_f32_setup(A32[None])
-            del A32
-        elif ndof <= poisson_inv_threshold:
-            # very-large tier: one (ndof, ndof) f32 inverse, kept in its
-            # equilibrated form. Kernel 1 holds its working copy and its
-            # output beside A_eq; A_eq and the working copy are freed
-            # before the run state is made
-            dm = vt_phi.dofmap
-            A_eq, s_phi = equilibrated_dense_f32(A_phi_el, dm, ndof,
-                                                 ctx_phi.free)
-            X_eq, ok = inv_f32_setup_large(
-                A_eq[None], s_phi, FA.make_constrained_operator_batched(
-                    A_phi_el[None], dm, ndof, ctx_phi.free[None]))
-            del A_eq
-            if ok:
-                poisson_tier = "inverse_large"
-                poisson_pre = (X_eq, s_phi)
-            del X_eq
-        if poisson_pre is not None:
-            solve_phi_inv = make_inv_refine_solver_arg(
-                A_phi_el[None], vt_phi.dofmap, ndof, ctx_phi.free[None])
+            lam_phi = 1.2 * estimate_dinv_spectral_radius(
+                op_phi, poisson_pre, _spectral_probe(ndof, device))
         else:
-            # two-level RAS factors, built once (above the inverse tiers,
-            # or where the very-large inverse failed its probe): local
-            # inverses + the piecewise-linear coarse space (3 modes per
-            # block)
-            poisson_tier = "ras"
-            poisson_pre = (
-                BR.build_local_inverses(ctx_ras, A_phi_el, ctx_phi.free),
-                BR.build_p1_coarse(ctx_ras, A_phi_el, vt_phi.dofmap,
-                                   ctx_phi.free, space.dof_coords))
-    _sync(device)
-    poisson_setup_seconds = _time.perf_counter() - t0
+            ctx_ras = BR.build_block_context_for_space(space, ras_block_size,
+                                                       device)
+            poisson_pre = None
+            if ndof <= min(poisson_inv_threshold, POISSON_INV_MAX_DOFS):
+                # mid-size tier: one f32 inverse of the constant operator
+                # (kernel 1 + the probe); every 1e-10 re-solve is an
+                # f64-residual refinement with it
+                poisson_tier = "inverse"
+                A32 = FA.dense_constrained_matrix(A_phi_el.to(F32),
+                                                  vt_phi.dofmap, ndof,
+                                                  ctx_phi.free)
+                poisson_pre = inv_f32_setup(A32[None])
+                del A32
+            elif ndof <= poisson_inv_threshold:
+                # very-large tier: one (ndof, ndof) f32 inverse, kept in its
+                # equilibrated form. Kernel 1 holds its working copy and its
+                # output beside A_eq; A_eq and the working copy are freed
+                # before the run state is made
+                dm = vt_phi.dofmap
+                A_eq, s_phi = equilibrated_dense_f32(A_phi_el, dm, ndof,
+                                                     ctx_phi.free)
+                X_eq, ok = inv_f32_setup_large(
+                    A_eq[None], s_phi, FA.make_constrained_operator_batched(
+                        A_phi_el[None], dm, ndof, ctx_phi.free[None]))
+                del A_eq
+                if ok:
+                    poisson_tier = "inverse_large"
+                    poisson_pre = (X_eq, s_phi)
+                del X_eq
+            if poisson_pre is not None:
+                solve_phi_inv = make_inv_refine_solver_arg(
+                    A_phi_el[None], vt_phi.dofmap, ndof, ctx_phi.free[None])
+            else:
+                # two-level RAS factors, built once (above the inverse tiers,
+                # or where the very-large inverse failed its probe): local
+                # inverses + the piecewise-linear coarse space (3 modes per
+                # block)
+                poisson_tier = "ras"
+                poisson_pre = (
+                    BR.build_local_inverses(ctx_ras, A_phi_el, ctx_phi.free),
+                    BR.build_p1_coarse(ctx_ras, A_phi_el, vt_phi.dofmap,
+                                       ctx_phi.free, space.dof_coords))
+        _sync(device)
+        poisson_setup_seconds = _time.perf_counter() - t0
 
     # ---- species stage matrices ------------------------------------------
     use_fast_dense = use_dense_species and space.degree == 1
@@ -598,15 +606,18 @@ def build_pnp_system(
         """Both species' DIRK stages with a fresh factor (stage inverses
         or local inverses) where one serves every stage, else with none
         (the species Krylov path)."""
-        u_old = torch.stack([ucp_, ucm_])
-        u_el = _drift_u_el(uphi_) if use_fast_dense else None
-        K_pair = _build_K_pair(uphi_, u_el)
-        factor = ras_inv = None
-        if use_dense_species:
-            factor = batched_inv_f32(_species_dense_f32(uphi_, u_el))
-        elif use_ras_factor:
-            ras_inv = _ras_factor(K_pair)
-        out, iters = _species_pair_onestep(K_pair, u_old, factor, ras_inv)
+        with span("pnp.species_step") as sp:
+            u_old = torch.stack([ucp_, ucm_])
+            u_el = _drift_u_el(uphi_) if use_fast_dense else None
+            K_pair = _build_K_pair(uphi_, u_el)
+            factor = ras_inv = None
+            if use_dense_species:
+                factor = batched_inv_f32(_species_dense_f32(uphi_, u_el))
+            elif use_ras_factor:
+                ras_inv = _ras_factor(K_pair)
+            out, iters = _species_pair_onestep(K_pair, u_old, factor,
+                                               ras_inv)
+            sp.set(iterations=iters)
         return out[0], out[1], iters
 
     def species_factor(uphi_):
@@ -616,28 +627,32 @@ def build_pnp_system(
         mid-size species tier returns a tagged pair: ("inv", the dense
         f32 stage inverses) where they pass the contraction probe, else
         ("ras", the RAS factor) for this refresh window."""
-        if use_dense_species:
-            return batched_inv_f32(_species_dense_f32(uphi_))
-        if use_mid_species:
-            X, ok = inv_f32_probe(_species_dense_f32(uphi_))
-            if ok:
-                return ("inv", X)
-            del X
-            return ("ras", _ras_factor(_build_K_pair(uphi_)))
-        return _ras_factor(_build_K_pair(uphi_))
+        with span("pnp.species_factor"):
+            if use_dense_species:
+                return batched_inv_f32(_species_dense_f32(uphi_))
+            if use_mid_species:
+                X, ok = inv_f32_probe(_species_dense_f32(uphi_))
+                if ok:
+                    return ("inv", X)
+                del X
+                return ("ras", _ras_factor(_build_K_pair(uphi_)))
+            return _ras_factor(_build_K_pair(uphi_))
 
     def species_step_reuse(factor, uphi_, ucp_, ucm_):
         """Both species' stages with a possibly stale factor."""
-        K_pair = _build_K_pair(uphi_)
-        u_old = torch.stack([ucp_, ucm_])
-        dense_factor = use_dense_species
-        if use_mid_species:
-            kind, factor = factor
-            dense_factor = kind == "inv"
-        if dense_factor:
-            out, iters = _species_pair_onestep(K_pair, u_old, factor)
-        else:
-            out, iters = _species_pair_onestep(K_pair, u_old, None, factor)
+        with span("pnp.species_step") as sp:
+            K_pair = _build_K_pair(uphi_)
+            u_old = torch.stack([ucp_, ucm_])
+            dense_factor = use_dense_species
+            if use_mid_species:
+                kind, factor = factor
+                dense_factor = kind == "inv"
+            if dense_factor:
+                out, iters = _species_pair_onestep(K_pair, u_old, factor)
+            else:
+                out, iters = _species_pair_onestep(K_pair, u_old, None,
+                                                   factor)
+            sp.set(iterations=iters)
         return out[0], out[1], iters
 
     def _poisson_residual(uphi_, ucp_, ucm_):
@@ -653,6 +668,12 @@ def build_pnp_system(
         inverse (mid-size; very large: in its scaled form), two-level-RAS
         BiCGSTAB (above), or the
         configured Krylov variant on the assembled diagonal."""
+        with span("pnp.poisson_solve", tier=poisson_tier) as sp:
+            uphi2, k = _poisson_solve(uphi_, ucp_, ucm_, phi_pre)
+            sp.set(iterations=k)
+        return uphi2, k
+
+    def _poisson_solve(uphi_, ucp_, ucm_, phi_pre):
         pre = poisson_pre if phi_pre is None else phi_pre
         if poisson_tier == "dense":
             P_phi, q_phi = pre
@@ -810,7 +831,8 @@ def run_instationary_pnp_from_pb(
         os.makedirs(output_dir, exist_ok=True)
         current_writer = CurrentWriter(os.path.join(output_dir, "current.dat"))
         for name, vec in (("phi", uphi), ("cp", ucp), ("cm", ucm)):
-            write_dat(space, _host(vec), os.path.join(output_dir, f"{name}.dat"))
+            write_dat(space, host_copy(vec),
+                      os.path.join(output_dir, f"{name}.dat"))
 
     history, step_ms = [], []
     species_its, poisson_its, rebuilt, kinds = [], [], [], []
@@ -818,61 +840,70 @@ def run_instationary_pnp_from_pb(
     ras_factor = None
     try:
         for i in range(start_step, n_steps):
-            t_step = _time.perf_counter()
-            # species stages, then the Poisson re-solve on the cadence
-            fresh = True
-            if use_ras_reuse:
-                fresh = ras_factor is None or i % ras_refresh_every == 0
-                if fresh:
-                    ras_factor = system.species_factor(uphi)
-                ucp, ucm, k = system.species_step_reuse(ras_factor, uphi,
-                                                        ucp, ucm)
-            else:
-                ucp, ucm, k = system.species_step(uphi, ucp, ucm)
-            kp = 0
-            if i % sys.potentialUpdateFreq == 0:
-                uphi, kp = system.poisson_solve(uphi, ucp, ucm)
-            _sync(device)
-            step_ms.append(1e3 * (_time.perf_counter() - t_step))
-            species_its.append(k)
-            poisson_its.append(kp)
-            rebuilt.append(fresh)
-            # the mid-size species tier tags its factor with its kind
-            kinds.append(ras_factor[0] if use_ras_reuse and system.mid_species
-                         else system.factor_kind)
-            time += dt
-            if i % sys.outputFreq == 0:
-                output_counter += 1
-                ip, im = calc_ion_flux(system.ionflux_tables, uphi, ucp, ucm,
-                                       convention=flux_convention)
-                ip, im = _host(ip), _host(im)
-                history.append((time, ip, im))
-                if output_dir:
-                    fields = {"phi": _host(uphi), "cp": _host(ucp),
-                              "cm": _host(ucm)}
-                    for name, vec in fields.items():
-                        write_dat(space, vec, os.path.join(
-                            output_dir, f"{name}{output_counter:03d}.dat"))
-                    write_vtu(space, fields, os.path.join(
-                        output_dir, f"data{output_counter:03d}.vtu"))
-                    current_writer.write(time, ip, im)
-            if (writes and checkpoint_path and checkpoint_freq
-                    and (i + 1) % checkpoint_freq == 0):
-                save_checkpoint(checkpoint_path, sys, i + 1, time,
-                                _host(uphi), _host(ucp), _host(ucm))
-            # failure guard: detect a non-finite state, dump an emergency
-            # checkpoint, and abort with a diagnosable error
-            if (i + 1) % 16 == 0 or i + 1 == n_steps:
-                if not bool(torch.isfinite(uphi).all()
-                            & torch.isfinite(ucp).all()
-                            & torch.isfinite(ucm).all()):
-                    if writes and checkpoint_path:
-                        save_checkpoint(checkpoint_path + ".emergency", sys,
-                                        i + 1, time, _host(uphi), _host(ucp),
-                                        _host(ucm))
-                    raise FloatingPointError(
-                        f"non-finite state at step {i + 1} (t={time:g}); "
-                        "reduce tau or enable presolve_potential")
+            with span("pnp.step", step=i):
+                t_step = _time.perf_counter()
+                # species stages, then the Poisson re-solve on the cadence
+                fresh = True
+                if use_ras_reuse:
+                    fresh = ras_factor is None or i % ras_refresh_every == 0
+                    if fresh:
+                        ras_factor = system.species_factor(uphi)
+                    ucp, ucm, k = system.species_step_reuse(ras_factor, uphi,
+                                                            ucp, ucm)
+                else:
+                    ucp, ucm, k = system.species_step(uphi, ucp, ucm)
+                kp = 0
+                if i % sys.potentialUpdateFreq == 0:
+                    uphi, kp = system.poisson_solve(uphi, ucp, ucm)
+                _sync(device)
+                step_ms.append(1e3 * (_time.perf_counter() - t_step))
+                species_its.append(k)
+                poisson_its.append(kp)
+                rebuilt.append(fresh)
+                # the mid-size species tier tags its factor with its kind
+                kinds.append(ras_factor[0]
+                             if use_ras_reuse and system.mid_species
+                             else system.factor_kind)
+                time += dt
+                if i % sys.outputFreq == 0:
+                    output_counter += 1
+                    with span("pnp.output"):
+                        ip, im = calc_ion_flux(system.ionflux_tables, uphi,
+                                               ucp, ucm,
+                                               convention=flux_convention)
+                        ip, im = host_copy(ip), host_copy(im)
+                        history.append((time, ip, im))
+                        if output_dir:
+                            fields = {"phi": host_copy(uphi),
+                                      "cp": host_copy(ucp),
+                                      "cm": host_copy(ucm)}
+                            for name, vec in fields.items():
+                                write_dat(space, vec, os.path.join(
+                                    output_dir,
+                                    f"{name}{output_counter:03d}.dat"))
+                            write_vtu(space, fields, os.path.join(
+                                output_dir, f"data{output_counter:03d}.vtu"))
+                            current_writer.write(time, ip, im)
+                if (writes and checkpoint_path and checkpoint_freq
+                        and (i + 1) % checkpoint_freq == 0):
+                    with span("pnp.checkpoint"):
+                        save_checkpoint(checkpoint_path, sys, i + 1, time,
+                                        host_copy(uphi), host_copy(ucp),
+                                        host_copy(ucm))
+                # failure guard: detect a non-finite state, dump an
+                # emergency checkpoint, and abort with a diagnosable error
+                if (i + 1) % 16 == 0 or i + 1 == n_steps:
+                    if not host_read(torch.isfinite(uphi).all()
+                                     & torch.isfinite(ucp).all()
+                                     & torch.isfinite(ucm).all()):
+                        if writes and checkpoint_path:
+                            save_checkpoint(
+                                checkpoint_path + ".emergency", sys, i + 1,
+                                time, host_copy(uphi), host_copy(ucp),
+                                host_copy(ucm))
+                        raise FloatingPointError(
+                            f"non-finite state at step {i + 1} (t={time:g}); "
+                            "reduce tau or enable presolve_potential")
     finally:
         if current_writer:
             current_writer.close()

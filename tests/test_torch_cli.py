@@ -5,6 +5,7 @@ the readers (numpy parser, native meshkit bridge, uniform refinement) are
 held to arrays identical to the reference package's on that file."""
 
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -149,7 +150,9 @@ def test_solver_and_degree_flags(files):
 
 def test_checkpoint_resume_and_profile_flags(files, tmp_path):
     """``--checkpoint``/``--checkpoint-freq``/``--resume`` reach the
-    production workload and ``--profile-dir`` writes a trace, in process."""
+    production workload and ``--profile-dir`` writes a trace and the
+    recorder's ``spans.json`` (a ``pnp.step`` span a step run, the host
+    syncs counted), in process."""
     ck = str(tmp_path / "ck.npz")
     common = ["--device", "cpu", "--checkpoint", ck, files["cfg"]]
     assert main(["--steps", "2", "--checkpoint-freq", "2", *common]) == 0
@@ -160,6 +163,12 @@ def test_checkpoint_resume_and_profile_flags(files, tmp_path):
     rows = (tmp_path / "o" / "current.dat").read_text().strip().split("\n")
     assert len(rows) == 1            # only step 3 ran after the resume
     assert (prof / "trace.json").exists()
+    summary = json.loads((prof / "spans.json").read_text())
+    assert summary["spans"]["pnp.step"]["count"] == 1
+    assert summary["spans"]["pnp.output"]["count"] == 1
+    assert summary["counters"]["host_syncs"] > 0
+    assert summary["spans"]["host.sync"]["count"] + summary["spans"][
+        "host.copy"]["count"] == summary["counters"]["host_syncs"]
 
 
 def test_multi_device_flag_raises(files, tmp_path):

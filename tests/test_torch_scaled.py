@@ -5,6 +5,7 @@ L = 103): both Poisson tiers, the species factor-reuse entry points of
 both kinds, presolved runs with ``ras_refresh_every=4`` and a checkpoint
 resume. Each test states its tolerance and the value it measured."""
 
+import json
 import os
 
 import jax.numpy as jnp
@@ -324,18 +325,23 @@ def test_unported_options_raise(case):
 
 
 def test_profiling(tmp_path):
-    """PhaseTimer times and counts phases; maybe_trace writes a trace."""
+    """PhaseTimer times and counts phases; maybe_trace writes a trace and
+    the recorder's summary beside it, whose counters count the host reads
+    made through ``host_read``."""
     timer = TPROF.PhaseTimer()
     x = torch.ones(64, dtype=torch.float64)
     with TPROF.maybe_trace(str(tmp_path / "tr")) as prof:
         for _ in range(2):
             with timer.phase("matvec", sync=(x,)):
                 y = x @ x
+        assert TPROF.host_read(y) == 64.0
     assert prof is not None and float(y) == 64.0
     assert os.path.getsize(tmp_path / "tr" / "trace.json") > 0
     assert timer.counts["matvec"] == 2 and timer.ms("matvec") >= 0.0
     assert "matvec" in timer.report()
     with TPROF.maybe_trace(None) as none:
         assert none is None
-    c = TPROF.Counters(dofs_assembled=300)
-    assert c.dofs_per_sec(2.0) == 150.0
+    summary = json.loads((tmp_path / "tr" / "spans.json").read_text())
+    assert summary["counters"] == {"host_syncs": 1}
+    assert summary["spans"]["host.sync"]["count"] == 1
+    assert TPROF.counters == TPROF.Counters(host_syncs=1)
