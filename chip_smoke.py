@@ -7,7 +7,7 @@ Phases, each printed as it ends; any failure exits non-zero and prints no
 result line:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build both CUDA kernels from ``pnp_tpu_torch/csrc/`` (timed);
+2. build the CUDA kernels from ``pnp_tpu_torch/csrc/`` (timed);
 3. kernel 1 (panel-blocked Gauss-Jordan inverse) against its plain PyTorch
    version on the card: on the real (2, 4801, 4801) species stage batch of
    the full-size pore case (at the presolved potential: the batch the main
@@ -183,13 +183,16 @@ result line:
     large dry run to 1e-8: the rounding of its f32 Schwarz inverses alone
     moves it by up to 3.0e-9), the scaled level's iteration counts within
     one, no result value null or non-finite; then kernel 1 on L0's (2,
-    3105, 3105) stage batch at the presolved potential and kernel 2 at E =
-    5,888.
+    3105, 3105) stage batch at the presolved potential, kernel 2 at E =
+    5,888 and kernel 3 at E = 5,888 in the three forms the main path calls
+    (:func:`spmv_checks`: the constrained Poisson operator, the constrained
+    species stage pair, the shared mass product), each against its plain
+    version and beside one CSR ``torch.mv`` of the same operator.
 
-``python3 chip_smoke.py --level-kernels L`` (L >= 1) checks and times both
-kernels at the shapes the bench's level L gives them (phase 9's checks on
-that level's system); ``python3 -m pnp_tpu_torch.bench`` runs the ladder
-itself.
+``python3 chip_smoke.py --level-kernels L`` (L >= 1) checks and times the
+three kernels at the shapes the bench's level L gives them (phase 9's
+checks and :func:`spmv_checks` on that level's system; L3: E = 376,832);
+``python3 -m pnp_tpu_torch.bench`` runs the ladder itself.
 
 The next-to-last line is ``{"kernels": [...]}``: per kernel its launches
 in phase 6 (in phase 8 as ``launches_block_ras``, in phase 8b as
@@ -216,8 +219,10 @@ and its launches under ``launches_bench``; ``[sharded]``'s under
 ``launches_sharded_procs`` (by rank) and ``launches_sharded_nccl``;
 ``[sharded amg]``'s (kernel 2) under ``sharded_amg_shape``, and its
 launches under ``launches_sharded_amg`` (kernel 1: 0),
-``launches_sharded_amg_procs`` and ``launches_sharded_amg_nccl``. The
-last line is ``{"ok": true, "device": {...}}``.
+``launches_sharded_amg_procs`` and ``launches_sharded_amg_nccl``. Kernel 3's
+error and times are those of ``[bench]``'s L0 Poisson operator, its three
+forms under ``bench_shape``, and its launches are counted on every path
+but the ranks'. The last line is ``{"ok": true, "device": {...}}``.
 Needs a CUDA device and ``nvcc``; writes the runs' outputs under
 ``chip_smoke_out/`` (gitignored).
 """
@@ -282,6 +287,9 @@ PEAK_F32, PEAK_F64, PEAK_BYTES = 67e12, 33.5e12, 3.35e12
 # kernel 2 against its plain version: f64, sums over quadrature points and
 # dofs in another order
 PB_REL_TOL = 1e-12
+# kernel 3 against its plain version: f64, each row's few products summed
+# in the incidence table's order, not the scatter's
+SPMV_REL_TOL = 1e-13
 # the slice on the card against the CPU: index_add_ on CUDA sums with
 # atomics in a varying order, and cuBLAS/the kernels sum in another order
 SLICE_REL_TOL = 1e-9
@@ -348,9 +356,11 @@ SHARD_PARITY_STEPS = 2
 SHARD_PROCS_STEPS = 2
 # the kernels each solver variant's sharded path launches: under
 # CG_AMG_SSOR phase A builds no RAS batch (its Newton runs CG under AMG),
-# so kernel 1 has no caller there
-PATH_KERNELS = {"BCGS_SSORk": ("gj_inverse", "pb_residual_jacobian"),
-                "CG_AMG_SSOR": ("pb_residual_jacobian",)}
+# so kernel 1 has no caller there; kernel 3 serves phase A's operators on
+# the whole dof map (the sharded step's SpMVs keep the shards' scatter)
+PATH_KERNELS = {"BCGS_SSORk": ("gj_inverse", "pb_residual_jacobian",
+                               "element_spmv"),
+                "CG_AMG_SSOR": ("pb_residual_jacobian", "element_spmv")}
 # the P2 production run on the dense tier (2,709 dofs, 1,280 triangles)
 P2_CASE = (64, 10)
 P2_STEPS = 3
@@ -587,6 +597,122 @@ def pb_check(torch, K, args, E_want: int) -> dict:
             "variants": {k: out[k] for k in ("residual", "jacobian")}}
 
 
+def spmv_csr(torch, blocks, dofmap, ndof: int, S: int, free=None):
+    """The operator of ``blocks`` (S_A, E, n, n), S_A S or 1, on S systems
+    as one (S ndof, S ndof) CSR matrix, block diagonal over the systems;
+    with ``free`` (S, ndof) the constrained operator: the masked couplings
+    explicit zeros, ones on the constrained rows' diagonal."""
+    E, n = dofmap.shape
+    dev = blocks.device
+    rows = dofmap[None] + ndof * torch.arange(S, device=dev)[:, None, None]
+    shape = (S, E, n, n)
+    r = rows[:, :, :, None].expand(shape).reshape(-1)
+    c = rows[:, :, None, :].expand(shape).reshape(-1)
+    v = blocks.expand(shape).reshape(-1)
+    if free is not None:
+        f = free.reshape(-1)
+        v = torch.where(f[r] & f[c], v, 0.0)
+        fixed = torch.nonzero(~f)[:, 0]
+        r, c = torch.cat([r, fixed]), torch.cat([c, fixed])
+        v = torch.cat([v, v.new_ones(fixed.shape[0])])
+    coo = torch.sparse_coo_tensor(torch.stack([r, c]), v,
+                                  (S * ndof, S * ndof)).coalesce()
+    return coo.to_sparse_csr()
+
+
+def spmv_checks(torch, K, system, dev, tag: str = "") -> dict:
+    """Kernel 3 in the three forms the main path calls, at the shapes it
+    gives them on ``system``'s mesh, on blocks assembled as the workload
+    assembles them at the presolved potential: the constrained Poisson
+    operator (one system: the Poisson re-solve's Krylov and refinement
+    applies), the constrained species stage pair (two systems, blocks and
+    masks of their own: the species stages' applies) and the mass product
+    (two systems, one set of blocks: the stages' history terms). Each
+    against the plain version (``fem.assembly.spmv_plain``) on the same
+    tensors to SPMV_REL_TOL of the output's scale, one launch an apply,
+    two applies bitwise equal; device times back to back
+    (``tools.spmv_sweep.device_ms``) of the kernel, the plain chain and one
+    ``torch.mv`` of the same operator as a CSR matrix (``library_ms``:
+    cuSPARSE, used nowhere in the port); the bound from
+    ``spmv_sweep.bound_bytes``. Returns the entries by form."""
+    from pnp_tpu_torch.fem import assembly as FA
+    from pnp_tpu_torch.fem import constraints as C
+    from pnp_tpu_torch.fem.geometry import build_volume_tables
+    from pnp_tpu_torch.operators import volume as V
+    from pnp_tpu_torch.operators.common import interp_grad
+    from pnp_tpu_torch.timestepping.tableaux import alexander2
+    from pnp_tpu_torch.tools import spmv_sweep as SS
+    from pnp_tpu_torch.workloads.common import make_scalar_context
+
+    sys_r, space = system.sys, system.space
+    ndof, pi = space.ndof, sys_r.pi
+    uphi1, _ = system.poisson_solve(system.uphi0, system.ucp0, system.ucm0)
+    ctx = make_scalar_context(sys_r, space, component=0, quad_order=3,
+                              device=dev)
+    vt2 = build_volume_tables(space, max(2, 2 * space.degree), dev)
+    vt5 = build_volume_tables(space, max(5, 2 * space.degree + 1), dev)
+    free_pair = torch.stack([
+        torch.as_tensor(C.free_dof_mask(space, sys_r, c), device=dev)
+        for c in (1, 2)])
+    tab = alexander2()
+    a01, b01 = float(tab.A[0][1]), float(tab.B[0][1])
+    gphi = interp_grad(uphi1[vt2.dofmap], vt2.gradphi)
+    K_pair = torch.stack([V.drift_diffusion_jacobian_el(gphi, vt2, z, False,
+                                                        pi)
+                          for z in (1.0, -1.0)])
+    M_el = V.mass_jacobian_el(vt5, 1.0, False, pi)
+    c_pair = torch.stack([system.ucp0, system.ucm0])
+    forms = {
+        "poisson": (V.poisson_jacobian_el(ctx.vt, sys_r.cylindrical, pi),
+                    ctx.vt.dofmap, ctx.free, uphi1),
+        "species_pair": (a01 * M_el[None] + (system.dt * b01) * K_pair,
+                         vt2.dofmap, free_pair, c_pair),
+        "mass": (M_el[None], vt2.dofmap, None, c_pair)}
+    del K_pair, gphi
+    out = {}
+    for name, (blocks, dofmap, free, x) in forms.items():
+        E, n = dofmap.shape
+        S = x.shape[0] if x.ndim == 2 else 1
+        S_A = blocks.shape[0] if blocks.ndim == 4 else 1
+        op = FA.make_operator(blocks, dofmap, ndof, free)
+        plain = lambda: FA.spmv_plain(blocks, x, dofmap, ndof, free)
+        n0 = K.launches["element_spmv"]
+        got = op(x)
+        launches = K.launches["element_spmv"] - n0
+        repeat = bool(torch.equal(got, op(x)))
+        want = plain()
+        err, rel = float((got - want).abs().max()), rel_err(got, want)
+        csr = spmv_csr(torch, blocks if blocks.ndim == 4 else blocks[None],
+                       dofmap, ndof, S,
+                       None if free is None else free.reshape(S, ndof))
+        xf = x.reshape(-1)
+        lib = lambda: torch.mv(csr, xf)
+        lib_rel = rel_err(lib().reshape(got.shape), want)
+        reps = 200 if E < 100_000 else 100
+        ms = SS.device_ms(lambda: op(x), reps)
+        plain_ms = SS.device_ms(plain, reps)
+        lib_ms = SS.device_ms(lib, reps)
+        nbytes = SS.bound_bytes(S, E, n, ndof, blocks.element_size(), S_A,
+                                free is not None)
+        b_ms, b_by = bound(2.0 * S * E * n * n, PEAK_F64, nbytes)
+        print(f"[kernel element_spmv, {tag}{name}] S = {S} (blocks of "
+              f"{S_A}), E = {E}, n = {n}, {ndof} dofs: max abs err vs plain "
+              f"{err:.3e} (rel {rel:.3e}, tol {SPMV_REL_TOL:g}), launches "
+              f"{launches}, bitwise repeat {repeat}; kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, torch.mv on CSR {lib_ms:.4f} ms "
+              f"(rel diff {lib_rel:.3e}); bound {b_ms:.5f} ms by {b_by} "
+              f"({100 * b_ms / ms:.1f} % reached)", flush=True)
+        check(rel <= SPMV_REL_TOL and launches == 1 and repeat,
+              f"element_spmv {tag}{name}")
+        out[name] = {"shape": [S, E, n], "systems_of_blocks": S_A,
+                     "masked": free is not None, "max_abs_err": err,
+                     "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                     "library_rel_diff": lib_rel}
+        del csr
+    return out
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -809,9 +935,11 @@ def krylov_main(torch, K, W, direct, tableau, pore_case, dev) -> dict:
     K.reset_launch_counts()
     system.species_step(res.phi, res.cp, res.cm)
     torch.cuda.synchronize(dev)
-    check(K.launches == {"gj_inverse": stages, "pb_residual_jacobian": 0},
+    check(K.launches["gj_inverse"] == stages
+          and K.launches["pb_residual_jacobian"] == 0
+          and K.launches["element_spmv"] > 0,
           f"one species step launched {K.launches}, not kernel 1 once a "
-          "stage")
+          "stage, kernel 3 in its operators and kernel 2 never")
 
     sys_s, space_s = pore_case(30, 17)
     run = lambda d: W.run_instationary_pnp_from_pb(
@@ -1097,8 +1225,9 @@ def dist_main(torch, K, TD, direct, pore_case, ras_res, dev):
     check(counts["gj_inverse"] == want, f"gj_inverse launched "
           f"{counts['gj_inverse']} times, not {want}")
     for name, n in counts.items():
-        check(n > 0, f"kernel {name} was not launched on the distributed "
-              "path")
+        # the owner-partitioned driver's SpMV is its own: no kernel 3
+        check((n == 0) == (name == "element_spmv"), f"kernel {name} "
+              f"launched {n} times on the distributed path")
     pb_err = rel_err(torch.from_numpy(system.to_global(system.pb)),
                      ras_res.system.pb.cpu())
     slack = dist_fields_err(res, ras_res, scaled_err)
@@ -1481,8 +1610,9 @@ def procs_gloo(torch, TD, MS, pore_case, dev):
           "state")
     want = int(r["pb_jacobian_builds"]) + 1 + DIST_STEPS // RAS_REFRESH
     for name, counts in launches.items():
-        check(all(c > 0 for c in counts), f"kernel {name} was not launched "
-              "on every rank")
+        # the owner-partitioned ranks' SpMV is their own: no kernel 3
+        check(all((c == 0) == (name == "element_spmv") for c in counts),
+              f"kernel {name} launched {counts} times by rank")
     check(launches["gj_inverse"] == [want] * PROCS_RANKS,
           f"gj_inverse launched {launches['gj_inverse']} times, not {want} "
           "on each rank")
@@ -2026,10 +2156,10 @@ def bench_phase(torch, K, W, direct, make_scalar_context, dev):
     ``device="cpu"``, final states to SLICE_REL_TOL (the large dry run to
     BENCH_DIST_LARGE_TOL), the scaled level's
     iteration counts within one, the dry run's plan sizes equal, and no
-    value of the results null or non-finite. Then both kernels at L0's
+    value of the results null or non-finite. Then the kernels at L0's
     shapes: kernel 1 on the (2, 3105, 3105) stage batch at the presolved
-    potential, kernel 2 at E = 5,888. Returns their entries and the
-    launch counts."""
+    potential, kernel 2 at E = 5,888, kernel 3 in its three forms at E =
+    5,888. Returns their entries and the launch counts."""
     from pnp_tpu_torch import bench as B
     from pnp_tpu_torch import entry as EN
 
@@ -2082,7 +2212,7 @@ def bench_phase(torch, K, W, direct, make_scalar_context, dev):
           f"dry run plans differ: {dry} {cpu['dryrun_out']}")
     del gpu, cpu
 
-    # both kernels at L0's shapes, on inputs from L0's system
+    # the kernels at L0's shapes, on inputs from L0's system
     sys0, space0 = B._load(0)
     system = W.build_pnp_system(sys0, space0, device=dev)
     uphi1, _ = system.poisson_solve(system.uphi0, system.ucp0, system.ucm0)
@@ -2098,17 +2228,19 @@ def bench_phase(torch, K, W, direct, make_scalar_context, dev):
     args = (system.pb[vt.dofmap], vt.shape, vt.gradphi, vt.qw, vt.qy,
             sys0.l_b, sys0.c0, sys0.cylindrical, sys0.pi)
     pb = pb_check(torch, K, args, BENCH_SHAPE[1])
-    return {"gj": gj, "pb": pb}, counts
+    spmv = spmv_checks(torch, K, system, dev, "bench L0 ")
+    return {"gj": gj, "pb": pb, "spmv": spmv}, counts
 
 
 def level_kernels(argv) -> int:
-    """``chip_smoke.py --level-kernels L`` (L >= 1): both kernels at the
+    """``chip_smoke.py --level-kernels L`` (L >= 1): the kernels at the
     shapes the bench's level L gives them, on inputs from that level's
     system built on the card (phase A included): kernel 1 on the species
     RAS and PB Jacobian local batches (and, on the mid-size tier, the
-    Poisson matrix), kernel 2 at the level's E, each against its plain
-    version and timed (:func:`ras_kernel_checks`). Prints the entries as
-    one JSON line last."""
+    Poisson matrix), kernel 2 at the level's E (:func:`ras_kernel_checks`),
+    kernel 3 in its three forms at the level's E (:func:`spmv_checks`),
+    each against its plain version and timed. Prints the entries as one
+    JSON line last."""
     import torch
 
     levels = int(argv[0])
@@ -2140,6 +2272,7 @@ def level_kernels(argv) -> int:
           flush=True)
     out = ras_kernel_checks(torch, K, direct, FA, V, BR, make_scalar_context,
                             system, dev, tag=f"L{levels} ")
+    out["spmv"] = spmv_checks(torch, K, system, dev, f"L{levels} ")
     print(json.dumps({"level_kernels": levels, **out}))
     return 0
 
@@ -2209,7 +2342,7 @@ def very_large_main(torch, K, W, direct, FA, V, BR, make_scalar_context,
     ctx_phi = make_scalar_context(sys_l, space_l, component=0, quad_order=3,
                                   device=dev)
     A_el = V.poisson_jacobian_el(ctx_phi.vt, sys_l.cylindrical, sys_l.pi)
-    op = FA.make_constrained_operator_batched(
+    op = FA.make_constrained_operator(
         A_el[None], ctx_phi.vt.dofmap, nodes, ctx_phi.free[None])
     gen = torch.Generator(device="cpu").manual_seed(11)
     b = torch.randn(1, nodes, generator=gen, dtype=torch.float64).to(dev)
@@ -2818,6 +2951,25 @@ def main() -> int:
          "sharded_amg_shape": amg_k["pb"],
          "launches_sharded_amg_procs": amg_procs["pb_residual_jacobian"],
          "launches_sharded_amg_nccl": amg_nccl["pb_residual_jacobian"]},
+        {"name": "element_spmv", "route": "cuda",
+         "source": "pnp_tpu_torch/csrc/element_spmv.cu",
+         "replaces": "pnp_tpu/fem/assembly.py:spmv (XLA's gather, batched "
+                     "matvec and scatter-add; no Pallas kernel)",
+         "launches": counts["element_spmv"],
+         **{k: bench_k["spmv"]["poisson"][k] for k in keys},
+         "shape": bench_k["spmv"]["poisson"]["shape"],
+         "library_rel_diff": bench_k["spmv"]["poisson"]["library_rel_diff"],
+         "bench_shape": bench_k["spmv"],
+         "launches_block_ras": ras_counts["element_spmv"],
+         "launches_species_krylov": kry_counts["element_spmv"],
+         "launches_very_large": large_counts["element_spmv"],
+         "launches_mid_species": mid_counts["element_spmv"],
+         "launches_workloads": work_counts["element_spmv"],
+         "launches_dist": dist_counts["element_spmv"],
+         "launches_p2": p2_counts["element_spmv"],
+         "launches_bench": bench_counts["element_spmv"],
+         "launches_sharded": shard_counts["element_spmv"],
+         "launches_sharded_amg": amg_counts["element_spmv"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -18,12 +18,20 @@ a :class:`~..parallel.sharding.ShardedDofmap`: :func:`scatter_add` and
 through, hand it the values, and it sums the shards' partial vectors (the
 psum GSPMD inserted in the reference). Any other dof map takes the plain
 ``index_add_``.
+
+On CUDA, the SpMVs and constrained operators (:func:`make_operator`,
+:func:`spmv`, :func:`spmv_batched`, :func:`make_constrained_operator`)
+launch one kernel an apply (``operators.kernels.ElementSpmv``), which sums
+each row in a fixed order, so an apply gives the same bits every run;
+their torch ops here (:func:`spmv_plain`) are its plain version, which the
+CPU takes, as do element-sharded dof maps on any device.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..operators import kernels as K
 from ..parallel.sharding import ShardedDofmap
 
 
@@ -50,29 +58,54 @@ def scatter_add_batched(values, dofmap, ndof: int):
                           values.reshape(values.shape[0], -1))
 
 
+def spmv_plain(A_el, x, dofmap, ndof: int, free=None):
+    """Kernel 3's plain version, on any device: gather, batched matvec,
+    scatter-add; with ``free``, the constrained product (x masked to the
+    free dofs before, x on the constrained rows after). A_el (E, n, n) with
+    x (ndof,), or (S_A, E, n, n) with x (S, ndof), S_A S or 1."""
+    xin = x if free is None else torch.where(free, x, 0.0)
+    if A_el.ndim == 3:
+        ye = torch.einsum("eij,ej->ei", A_el, xin[dofmap])
+        y = scatter_add(ye, dofmap, ndof)
+    else:
+        if A_el.shape[0] == 1 and x.shape[0] > 1:
+            ye = torch.einsum("eij,sej->sei", A_el[0], xin[:, dofmap])
+        else:
+            ye = torch.einsum("seij,sej->sei", A_el, xin[:, dofmap])
+        y = scatter_add_batched(ye, dofmap, ndof)
+    return y if free is None else torch.where(free, y, x)
+
+
+def make_operator(A_el, dofmap, ndof: int, free=None):
+    """Return x -> A @ x from per-element dense blocks, prepared once for
+    every apply; with ``free``, the constrained product (see
+    :func:`make_constrained_operator`). A_el (E, n, n) with free and x
+    (ndof,), or batched: A_el (S_A, E, n, n), free (S, ndof), x (S, ndof),
+    where S_A is S or 1 (one set of blocks for every system)."""
+    if A_el.is_cuda and not isinstance(dofmap, ShardedDofmap):
+        return K.ElementSpmv(A_el, dofmap, ndof, free)
+    return lambda x: spmv_plain(A_el, x, dofmap, ndof, free)
+
+
 def spmv(A_el, x, dofmap, ndof: int):
     """Matrix-free SpMV from per-element dense blocks.
 
     A_el: (E, n, n); x: (ndof,). Returns A @ x as (ndof,).
     """
-    ye = torch.einsum("eij,ej->ei", A_el, x[dofmap])
-    return scatter_add(ye, dofmap, ndof)
+    return make_operator(A_el, dofmap, ndof)(x)
 
 
 def spmv_batched(A_el, x, dofmap, ndof: int):
-    """Batched matrix-free SpMV: A_el (S, E, n, n), x (S, ndof)."""
-    ye = torch.einsum("seij,sej->sei", A_el, x[:, dofmap])
-    return scatter_add_batched(ye, dofmap, ndof)
+    """Batched matrix-free SpMV: A_el (S_A, E, n, n), S_A S or 1; x
+    (S, ndof)."""
+    return make_operator(A_el, dofmap, ndof)(x)
 
 
-def make_constrained_operator_batched(A_el, dofmap, ndof: int, free):
-    """Batched variant of make_constrained_operator: free is (S, ndof)."""
-
-    def op(x):
-        y = spmv_batched(A_el, torch.where(free, x, 0.0), dofmap, ndof)
-        return torch.where(free, y, x)
-
-    return op
+def make_constrained_operator(A_el, dofmap, ndof: int, free):
+    """Return y = A_c @ x where A_c is A with Dirichlet rows/cols replaced by
+    identity: y_c = x_c on constrained dofs, couplings masked out. Shapes
+    as :func:`make_operator`'s, one system or batched."""
+    return make_operator(A_el, dofmap, ndof, free)
 
 
 def diagonal(A_el, dofmap, ndof: int):
@@ -83,17 +116,6 @@ def diagonal(A_el, dofmap, ndof: int):
 def constrain_residual(r, free):
     """Zero residual entries on constrained (Dirichlet) dofs."""
     return torch.where(free, r, 0.0)
-
-
-def make_constrained_operator(A_el, dofmap, ndof: int, free):
-    """Return y = A_c @ x where A_c is A with Dirichlet rows/cols replaced by
-    identity: y_c = x_c on constrained dofs, couplings masked out."""
-
-    def op(x):
-        y = spmv(A_el, torch.where(free, x, 0.0), dofmap, ndof)
-        return torch.where(free, y, x)
-
-    return op
 
 
 def constrained_diagonal(A_el, dofmap, ndof: int, free):

@@ -23,7 +23,15 @@ kernels there become CUDA C++ kernels in ``pnp_tpu_torch/csrc/``:
   four threads an element, one ``expm1`` for ``sinh`` and ``cosh``, the
   upper triangle of A alone accumulated; :class:`PBElement` holds what
   does not change from call to call. The plain version is the same
-  arithmetic in torch ops.
+  arithmetic in torch ops;
+* :class:`ElementSpmv` (``csrc/element_spmv.cu``) replaces no Pallas
+  kernel: the constrained matrix-free SpMV from per-element blocks, which
+  the reference leaves to XLA as gather, batched matvec and scatter-add,
+  in one launch. Bytes bound it (the blocks, read once); one thread a dof
+  row gathers over the row's elements from an incidence table built once
+  per dof map (:func:`incidence_table`), so it sums in a fixed order and
+  without atomics. The plain version is ``fem/assembly.py``'s gather,
+  einsum and ``index_add_``, which the CPU takes.
 
 Build: at first use one ``nvcc`` per ``csrc/*.cu``, all started together,
 then one link into a shared library with a plain C interface, in
@@ -35,18 +43,22 @@ Routing: a CPU tensor takes the plain PyTorch version; a CUDA tensor
 launches the kernel or raises. There is no fallback from one to the
 other. Each wrapper adds one to ``launches[name]`` where it launches its
 kernel, and nowhere else, and opens a ``kernels.<name>`` span
-(``utils.profiling``) with the batch ``b`` and the order ``n``.
+(``utils.profiling``) with the batch ``b`` and the order ``n`` (kernel 3:
+the systems ``s``, the elements ``e`` and ``n``). Kernel 3's routing sits
+in ``fem/assembly.py``, whose torch ops are its plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import pathlib
 import shutil
 import subprocess
 import time
+import weakref
 
 import torch
 
@@ -59,7 +71,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
-launches = {"gj_inverse": 0, "pb_residual_jacobian": 0}
+launches = {"gj_inverse": 0, "pb_residual_jacobian": 0, "element_spmv": 0}
 
 _lib = None
 
@@ -148,6 +160,7 @@ def _bind_gj(lib):
 
 def _bind(lib):
     _bind_gj(lib)
+    _bind_spmv(lib)
     return _bind_pb(lib)
 
 
@@ -499,3 +512,163 @@ def pb_residual_jacobian(ue, shape, gradphi, qw, qy, l_b, c0, cylindrical,
     that keeps its tables keeps the :class:`PBElement` instead."""
     return PBElement(shape, gradphi, qw, qy, l_b, c0, cylindrical, pi)(
         ue, outputs)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 3: constrained element-block SpMV (csrc/element_spmv.cu)
+# ---------------------------------------------------------------------------
+
+def _bind_spmv(lib):
+    """Argument types of ``csrc/element_spmv.cu``'s C interface."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for name in ("element_spmv_f64", "element_spmv_f32"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, ll, p, p, p, p, p, p, i, i, i, i, p]
+        fn.restype = i
+    return lib
+
+
+@dataclasses.dataclass(frozen=True)
+class IncidenceTable:
+    """The element blocks' rows by dof: row i of the global matrix is the
+    sum of the block rows ``entries[offsets[i]:offsets[i + 1]]``, each the
+    flat index ``e * n + l`` of an element e whose local dof l is i, in
+    increasing e. ``dofmap`` is the dof map as int32."""
+
+    dofmap: torch.Tensor      # (E, n) int32
+    offsets: torch.Tensor     # (ndof + 1,) int32
+    entries: torch.Tensor     # (E * n,) int32
+
+
+def incidence_table(dofmap, ndof: int) -> IncidenceTable:
+    """Kernel 3's table for ``dofmap`` (E, n), entries in [0, ndof), on its
+    device, in torch ops and without a host read: a stable sort of the
+    flat dof map orders each dof's (e, l) by element."""
+    E, n = dofmap.shape
+    if E * n >= 2 ** 31 or ndof >= 2 ** 31:
+        raise ValueError(f"element_spmv: {E} x {n} entries or {ndof} dofs "
+                         "do not fit int32")
+    keys, order = torch.sort(dofmap.reshape(-1), stable=True)
+    rows = torch.arange(ndof + 1, dtype=keys.dtype, device=keys.device)
+    offsets = torch.searchsorted(keys, rows)
+    return IncidenceTable(dofmap.to(torch.int32).contiguous(),
+                          offsets.to(torch.int32), order.to(torch.int32))
+
+
+# id(dofmap) -> (a weak reference to it, its IncidenceTable); an entry goes
+# when its dof map does
+_tables: dict = {}
+
+
+def table_for(dofmap, ndof: int) -> IncidenceTable:
+    """The incidence table of ``dofmap``, built at its first use and kept
+    as long as the dof map lives: every apply of a run on one dof map
+    shares one. A dof map has one ``ndof``; another raises."""
+    key = id(dofmap)
+    held = _tables.get(key)
+    if held is None or held[0]() is not dofmap:
+        held = (weakref.ref(dofmap), incidence_table(dofmap, ndof))
+        _tables[key] = held
+        weakref.finalize(dofmap, _tables.pop, key, None)
+    table = held[1]
+    if table.offsets.shape[0] != ndof + 1:
+        raise ValueError(f"element_spmv: the dof map's table has "
+                         f"{table.offsets.shape[0] - 1} dofs, not {ndof}")
+    return table
+
+
+class ElementSpmv:
+    """Kernel 3 prepared for one set of element blocks: ``op(x)`` is the
+    product of the matrix they assemble to with x, and with ``free`` the
+    constrained one, x on the constrained rows and their couplings masked
+    out (``fem.assembly.make_operator``).
+
+    ``A_el`` (E, n, n) with x (ndof,) and ``free`` (ndof,) or None; or
+    ``A_el`` (S_A, E, n, n) with x (S, ndof) and ``free`` (S, ndof) or
+    None, where S_A is S or 1 (one set of blocks serves every system, as
+    the species mass matrix does); the output is shaped as x. f64 or f32,
+    x in the blocks' type. CUDA tensors only: the CPU takes the plain
+    version in ``fem/assembly.py``."""
+
+    def __init__(self, A_el, dofmap, ndof: int, free=None):
+        if not A_el.is_cuda:
+            raise ValueError("element_spmv kernel needs CUDA tensors")
+        if A_el.dtype not in (torch.float64, torch.float32):
+            raise ValueError(f"element_spmv takes f64 or f32, got "
+                             f"{A_el.dtype}")
+        if A_el.ndim not in (3, 4):
+            raise ValueError(f"element blocks must be (E, n, n) or "
+                             f"(S, E, n, n), got {tuple(A_el.shape)}")
+        self.batched = A_el.ndim == 4
+        A4 = A_el if self.batched else A_el[None]
+        S_A, E, n, n2 = A4.shape
+        if n != n2 or tuple(dofmap.shape) != (E, n) \
+                or dofmap.device != A_el.device:
+            raise ValueError(f"blocks {tuple(A_el.shape)} and dof map "
+                             f"{tuple(dofmap.shape)} on {dofmap.device} "
+                             "do not match")
+        self.blocks = A4.contiguous()
+        self.a_stride = 0 if S_A == 1 else E * n * n
+        self.S_A, self.S_f, self.mask = S_A, None, None
+        if free is not None:
+            S_f = free.shape[0] if self.batched and free.ndim == 2 else None
+            want = (S_f, ndof) if self.batched else (ndof,)
+            if free.dtype != torch.bool or free.device != A_el.device \
+                    or tuple(free.shape) != want or S_A not in (1, S_f):
+                raise ValueError(f"free must be bool {want} on "
+                                 f"{A_el.device} for {S_A} systems' blocks, "
+                                 f"got {tuple(free.shape)} {free.dtype} on "
+                                 f"{free.device}")
+            self.S_f = S_f
+            self.mask = free.contiguous().view(torch.uint8)
+        self.table = table_for(dofmap, ndof)
+        self.dtype, self.device = A_el.dtype, A_el.device
+        self.E, self.n, self.ndof = E, n, ndof
+        self._call = None           # bound at the first call
+
+    def _bind(self):
+        lib = _library()
+        fn = (lib.element_spmv_f64 if self.dtype == torch.float64
+              else lib.element_spmv_f32)
+        blocks, a_stride = self.blocks.data_ptr(), self.a_stride
+        mask = None if self.mask is None else self.mask.data_ptr()
+        t = self.table
+        dofmap, offsets, entries = (t.dofmap.data_ptr(), t.offsets.data_ptr(),
+                                    t.entries.data_ptr())
+        n, ndof = self.n, self.ndof
+        index = self.device.index
+        if index is None:
+            index = torch.cuda.current_device()
+        raw_stream = _raw_stream_of(self.device)
+
+        def call(x, y, S):
+            return fn(blocks, a_stride, x, mask, y, dofmap, offsets, entries,
+                      S, ndof, n, index, raw_stream())
+
+        return call
+
+    def _systems(self, x) -> int:
+        S = x.shape[0] if self.batched and x.ndim == 2 else 1
+        if (x.dtype != self.dtype or x.device != self.device
+                or tuple(x.shape) != ((S, self.ndof) if self.batched
+                                      else (self.ndof,))
+                or self.S_A not in (1, S)
+                or self.S_f not in (None, S)):
+            raise ValueError(
+                f"x must be {'(S, ' if self.batched else '('}{self.ndof}) "
+                f"{self.dtype} on {self.device} for {self.S_A} systems' "
+                f"blocks and {self.S_f} masks, got {tuple(x.shape)} "
+                f"{x.dtype} on {x.device}")
+        return S
+
+    def __call__(self, x):
+        S = self._systems(x)
+        with span("kernels.element_spmv", s=S, e=self.E, n=self.n):
+            if self._call is None:
+                self._call = self._bind()
+            x = x.contiguous()
+            y = torch.empty_like(x)
+            err = self._call(x.data_ptr(), y.data_ptr(), S)
+            _check(err, "element_spmv")
+            launches["element_spmv"] += 1
+            return y

@@ -204,10 +204,7 @@ def two_level_precond(A_el, ctx: AmgContext, diag, free=None):
     agg_ok = ctx.agg >= 0
     prolong_ix = torch.clamp_min(ctx.agg, 0)
 
-    def apply_A(x):
-        y = FA.spmv_batched(A_b, torch.where(free_b, x, 0.0), ctx.dofmap,
-                            ndof)
-        return torch.where(free_b, y, x)
+    apply_A = FA.make_constrained_operator(A_b, ctx.dofmap, ndof, free_b)
 
     def restrict(r):
         rz = torch.cat([torch.where(free_b, r, 0.0),

@@ -186,7 +186,7 @@ def make_inv_refine_solver_arg(A_el, dofmap, ndof: int, free,
     Correctness comes from the exact f64 element-block residual; the
     inverse only sets the contraction rate. ``r`` must be zero on
     constrained rows."""
-    op = FA.make_constrained_operator_batched(A_el, dofmap, ndof, free)
+    op = FA.make_constrained_operator(A_el, dofmap, ndof, free)
 
     def solve(Ainv, r, reduction: float):
         with span("direct.refine") as sp:
@@ -229,7 +229,7 @@ def make_lu_refine_solver(lu_piv, A_el, dofmap, ndof: int, free,
     constrained rows. A diverging refinement (non-finite residual) runs to
     ``maxrefine`` so the caller sees the saturated count."""
     lu, piv = lu_piv
-    op = FA.make_constrained_operator_batched(A_el, dofmap, ndof, free)
+    op = FA.make_constrained_operator(A_el, dofmap, ndof, free)
 
     def lu_apply(rk):
         d = torch.linalg.lu_solve(lu, piv, rk.to(torch.float32)[..., None])

@@ -348,6 +348,8 @@ def build_pnp_system(
                                          block_dofmap=vt2.dofmap))
 
         M_el = V.mass_jacobian_el(vt5, 1.0, False, pi)  # planar (as the ref)
+        # one mass matrix for both species; vt5 and vt2 share a dof map
+        mass_apply = FA.make_operator(M_el[None], vt2.dofmap, ndof)
         A_phi_el = V.poisson_jacobian_el(vt_phi, sys.cylindrical, pi)
         op_phi = FA.make_constrained_operator(A_phi_el, vt_phi.dofmap, ndof,
                                               ctx_phi.free)
@@ -410,7 +412,7 @@ def build_pnp_system(
                 A_eq, s_phi = equilibrated_dense_f32(A_phi_el, dm, ndof,
                                                      ctx_phi.free)
                 X_eq, ok = inv_f32_setup_large(
-                    A_eq[None], s_phi, FA.make_constrained_operator_batched(
+                    A_eq[None], s_phi, FA.make_constrained_operator(
                         A_phi_el[None], dm, ndof, ctx_phi.free[None]))
                 del A_eq
                 if ok:
@@ -533,18 +535,13 @@ def build_pnp_system(
         ``ras_inv`` (two-level with a (inv, p1) factor) or, with none
         handed in, with each stage's own local inverses. Otherwise the
         configured Krylov variant on each stage's batched diagonal."""
-        A_stage = solve = None
+        stage_apply = solve = None
         if factor is not None:
             A_stage = _stage_blocks(K_pair)
+            stage_apply = FA.make_operator(A_stage, vt2.dofmap, ndof)
             solve = make_inv_refine_solver(factor, A_stage, vt2.dofmap,
                                            ndof, free_pair)
-
-        def mass_apply(u):
-            ye = torch.einsum("eij,sej->sei", M_el, u[:, vt5.dofmap])
-            return FA.scatter_add_batched(ye, vt5.dofmap, ndof)
-
-        def alpha_apply(u):
-            return FA.spmv_batched(K_pair, u, vt2.dofmap, ndof)
+        alpha_apply = FA.make_operator(K_pair, vt2.dofmap, ndof)
 
         mass, alpha = {}, {}      # per-level scatters, reused across stages
 
@@ -568,7 +565,7 @@ def build_pnp_system(
             guess = torch.where(free_pair, levels[-1], g_pair)
             if solve is not None:
                 # the guess's mass + drift terms share the stage blocks
-                r = hist + FA.spmv_batched(A_stage, guess, vt2.dofmap, ndof)
+                r = hist + stage_apply(guess)
                 r = torch.where(free_pair, r, 0.0)
                 z, k = solve(r, stage_reduction)
                 levels.append(guess - z)
@@ -578,8 +575,8 @@ def build_pnp_system(
                  + dt * b_ii * alpha_apply(guess))
             r = torch.where(free_pair, r, 0.0)
             A_el = _stage_blocks(K_pair, a_ii, b_ii)
-            op = FA.make_constrained_operator_batched(A_el, vt2.dofmap, ndof,
-                                                      free_pair)
+            op = FA.make_constrained_operator(A_el, vt2.dofmap, ndof,
+                                              free_pair)
             if use_block_ras:
                 inv_s, p1_s = (ras_inv if isinstance(ras_inv, tuple)
                                else (ras_inv, None))

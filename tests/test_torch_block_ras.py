@@ -189,8 +189,7 @@ def test_two_level_precond_with_reference_tables(laplace, coarse):
     jinv = JBR.build_local_inverses(jc, jA, jf)
     jop = (JA.make_constrained_operator_batched if batched
            else JA.make_constrained_operator)(jA, jvt.dofmap, P["ndof"], jf)
-    top = (TA.make_constrained_operator_batched if batched
-           else TA.make_constrained_operator)(tA, tvt.dofmap, P["ndof"], tf)
+    top = TA.make_constrained_operator(tA, tvt.dofmap, P["ndof"], tf)
     coords = P["jspace"].dof_coords
     if coarse == "pwconst":
         jcinv = JBR.build_coarse_inverse(jc, jA, jvt.dofmap, jf)
@@ -236,7 +235,7 @@ def test_bicgstab_ras_matches_reference(laplace, case):
         jA, tA = P["jpair"], P["tpair"]
         jf, tf = jnp.stack([P["jfree"]] * 2), torch.stack([P["tfree"]] * 2)
         jop = JA.make_constrained_operator_batched(jA, jvt.dofmap, n, jf)
-        top = TA.make_constrained_operator_batched(tA, tvt.dofmap, n, tf)
+        top = TA.make_constrained_operator(tA, tvt.dofmap, n, tf)
         red = 1e-8
     else:
         jA, tA, jf, tf = P["jA"], P["tA"], P["jfree"], P["tfree"]
@@ -311,7 +310,7 @@ def test_lu_refine_solver_matches_reference():
         tpair, tvt.dofmap, n, tf))
     assert tlu[0].dtype == torch.float32
     tsolve = TD.make_lu_refine_solver(tlu, tpair, tvt.dofmap, n, tf)
-    top = TA.make_constrained_operator_batched(tpair, tvt.dofmap, n, tf)
+    top = TA.make_constrained_operator(tpair, tvt.dofmap, n, tf)
     r = np.random.RandomState(0).standard_normal((2, n)) * free
     for red in (1e-5, 1e-10):
         xt, kt = tsolve(T(r), red)

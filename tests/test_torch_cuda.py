@@ -15,6 +15,7 @@ from pnp_tpu_torch.meshio.structured import rect_mesh
 from pnp_tpu_torch.operators import kernels as K
 from pnp_tpu_torch.problems import pore_case, substeps_tableau
 from pnp_tpu_torch.solvers.direct import contraction_ok
+from pnp_tpu_torch.tools.spmv_sweep import case_tensors
 from pnp_tpu_torch.workloads.common import make_scalar_context
 from pnp_tpu_torch.workloads.instationary_pnp_from_pb import (
     build_pnp_system, run_instationary_pnp_from_pb)
@@ -438,7 +439,9 @@ def test_gj_kernel_at_the_schwarz_shapes(cuda):
 
 def test_distributed_on_card_matches_cpu(cuda):
     """The owner-partitioned driver at K = 8 on the card against the CPU,
-    2 steps of the one-wall case: fields to 1e-9 relative."""
+    2 steps of the one-wall case: fields to 1e-9 relative. Kernels 1 and 2
+    launch; kernel 3 does not (the driver's owner-partitioned SpMV is its
+    own)."""
     from pnp_tpu_torch.problems import one_wall_case
     from pnp_tpu_torch.workloads.distributed_pnp import \
         run_distributed_pnp_from_pb
@@ -446,7 +449,9 @@ def test_distributed_on_card_matches_cpu(cuda):
     sys_, space = one_wall_case(40, 4)
     K.reset_launch_counts()
     a = run_distributed_pnp_from_pb(sys_, space, 8, n_steps=2, device=cuda)
-    assert min(K.launches.values()) > 0
+    assert K.launches["gj_inverse"] > 0
+    assert K.launches["pb_residual_jacobian"] > 0
+    assert K.launches["element_spmv"] == 0
     b = run_distributed_pnp_from_pb(sys_, space, 8, n_steps=2, device="cpu")
     for name in ("phi", "cp", "cm"):
         x, y = getattr(a, name), getattr(b, name)
@@ -458,7 +463,9 @@ def test_ranks_on_card_match_batch_axis(cuda, tmp_path):
     card (``multiproc_smoke``, each rank on the current card) against the
     batch-axis driver at K = 4 in this process, 2 presolved steps of the
     one-wall case: one-level Schwarz, the same PB Newton count, fields and
-    currents within 1e-8 of max + 1, both kernels launched on every rank."""
+    currents within 1e-8 of max + 1, kernels 1 and 2 launched on every
+    rank and kernel 3 on none (the ranks' owner-partitioned SpMV is their
+    own)."""
     import os
     import subprocess
     import sys
@@ -481,7 +488,10 @@ def test_ranks_on_card_match_batch_axis(cuda, tmp_path):
                                       presolve_potential=True, device=cuda)
     assert str(got["poisson_tier"]) == ref.system.poisson_tier == "schwarz"
     assert int(got["pb_newton_iterations"]) == ref.pb_newton_iterations
-    assert (got["launches"] > 0).all(), got["launches"]
+    launches = dict(zip(got["kernel_names"].tolist(), got["launches"].T))
+    for name in ("gj_inverse", "pb_residual_jacobian"):
+        assert (launches[name] > 0).all(), launches
+    assert (launches["element_spmv"] == 0).all(), launches
     scaled = lambda a, b: np.abs(a - b).max() / (np.abs(b).max() + 1.0)
     for name in ("phi", "cp", "cm"):
         assert scaled(got[name], getattr(ref, name)) <= 1e-8, name
@@ -501,3 +511,119 @@ def test_nccl_default_refuses_two_ranks_on_one_card(cuda, monkeypatch):
     with pytest.raises(ValueError, match="gloo"):
         PD.initialize_distributed("127.0.0.1:1", n, 0, backend=None)
     assert PD.resolve_backend(None, torch.cuda.device_count()) == "nccl"
+
+
+# --- kernel 3: constrained element-block SpMV -------------------------------
+
+def spmv_forms(A, pair, dofmap, ndof, free):
+    """(name, function of x) for every form the port calls."""
+    from pnp_tpu_torch.fem import assembly as FA
+
+    return [
+        ("constrained", lambda x: FA.make_constrained_operator(
+            A, dofmap, ndof, free[0])(x[0])),
+        ("constrained pair", FA.make_constrained_operator(
+            pair, dofmap, ndof, free)),
+        ("one system, batched", lambda x: FA.make_constrained_operator(
+            A[None], dofmap, ndof, free[:1])(x[:1])),
+        ("shared blocks", lambda x: FA.spmv_batched(A[None], x, dofmap,
+                                                    ndof)),
+        ("unconstrained", lambda x: FA.spmv(A, x[0], dofmap, ndof)),
+        ("unconstrained pair", lambda x: FA.spmv_batched(pair, x, dofmap,
+                                                         ndof)),
+    ]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("levels", [0, 3], ids=["L0", "L3"])
+def test_element_spmv_matches_plain(cuda, levels, dtype):
+    """Kernel 3 in every form the port calls, on the benchmark's meshes
+    (3,105 and 189,697 nodes), against the plain version (the same calls
+    on the CPU): one launch a call, constrained rows exactly x, the rest to
+    round-off (f64 1e-13, f32 1e-5 of the output's scale)."""
+    dofmap, ndof, A, pair, free, x = case_tensors(levels, cuda)
+    A, pair, x = A.to(dtype), pair.to(dtype), x.to(dtype)
+    cards = spmv_forms(A, pair, dofmap, ndof, free)
+    plains = spmv_forms(A.cpu(), pair.cpu(), dofmap.cpu(), ndof, free.cpu())
+    rtol = 1e-13 if dtype == torch.float64 else 1e-5
+    for (name, card), (_, plain) in zip(cards, plains):
+        n0 = K.launches["element_spmv"]
+        got = card(x)
+        assert K.launches["element_spmv"] == n0 + 1, name
+        want = plain(x.cpu())
+        assert got.shape == want.shape and got.dtype == dtype, name
+        torch.testing.assert_close(got.cpu(), want, rtol=0,
+                                   atol=rtol * float(want.abs().max()),
+                                   msg=name)
+    y = cards[1][1](x)
+    assert torch.equal(y[~free], x[~free])
+
+
+def test_element_spmv_is_one_launch_without_sync_and_repeats_bitwise(cuda):
+    """At 189,697 nodes: an apply is one device kernel (the profiler sees
+    nothing else), waits for nothing on the host
+    (``torch.cuda.set_sync_debug_mode``, incidence table built inside the
+    window included), and two applies give the same bits (no atomics)."""
+    import warnings
+
+    from pnp_tpu_torch.fem import assembly as FA
+
+    dofmap, ndof, A, pair, free, x = case_tensors(3, cuda)
+    K.build()
+    dofmap = dofmap.clone()          # a dof map without a table yet
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            op = FA.make_constrained_operator(pair, dofmap, ndof, free)
+            y1, y2 = op(x), op(x)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert not [w for w in caught
+                if "called a synchronizing CUDA operation" in str(w.message)]
+    assert torch.equal(y1, y2)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(3):
+            op(x)
+        torch.cuda.synchronize()
+    kernels = [e.key for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    counts = {e.key: e.count for e in prof.key_averages()
+              if e.key in kernels}
+    assert len(kernels) == 1 and "element_spmv" in kernels[0], counts
+    assert counts[kernels[0]] == 3
+
+
+def test_sharded_dofmap_keeps_its_scatter(cuda):
+    """Element-sharded tables (one process, K = 4 shards) take the shards'
+    partial scatter, not kernel 3, and agree with the whole dof map's
+    apply."""
+    from pnp_tpu_torch.fem import assembly as FA
+    from pnp_tpu_torch.operators import volume as V
+    from pnp_tpu_torch.parallel import sharding as S
+
+    _, space = pore_case(30, 17)
+    vt = build_volume_tables(space, 2, cuda)
+    svt = S.shard_volume_tables(vt, S.make_device_mesh(4, device=cuda))
+    assert isinstance(svt.dofmap, S.ShardedDofmap)
+    A = V.laplace_jacobian_el(vt)
+    A_s = V.laplace_jacobian_el(svt)
+    x = torch.linspace(-1.0, 1.0, space.ndof, dtype=torch.float64,
+                       device=cuda)
+    free = x > -0.5
+    n0 = K.launches["element_spmv"]
+    got = FA.make_constrained_operator(A_s, svt.dofmap, space.ndof, free)(x)
+    got_b = FA.spmv_batched(A_s[None], x[None], svt.dofmap, space.ndof)
+    assert K.launches["element_spmv"] == n0
+    want = FA.make_constrained_operator(A, vt.dofmap, space.ndof, free)(x)
+    assert K.launches["element_spmv"] == n0 + 1
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-13 * float(want.abs().max()))
+    torch.testing.assert_close(got_b[0], FA.spmv(A, x, vt.dofmap, space.ndof),
+                               rtol=0, atol=1e-13 * float(want.abs().max()))

@@ -104,7 +104,7 @@ def test_assembly():
         T(x[0])), JA.make_constrained_operator(jnp.asarray(A_el[0]), dm, ndof,
                                                jnp.asarray(free[0]))(
         jnp.asarray(x[0])))
-    close(TA.make_constrained_operator_batched(T(A_el), tdm, ndof, T(free))(
+    close(TA.make_constrained_operator(T(A_el), tdm, ndof, T(free))(
         T(x)), JA.make_constrained_operator_batched(
         jnp.asarray(A_el), dm, ndof, jnp.asarray(free))(jnp.asarray(x)))
     close(TA.diagonal(T(A_el[1]), tdm, ndof),

@@ -242,3 +242,168 @@ def test_pb_source_rejects_bad_plans(emulated_pb):
             *ptrs, out.ctypes.data, out.ctypes.data, 8, 4, a["n"], 1.0, 0,
             6.28, a["outputs"], a["tpe"], a["staged"], a["threads"], 0, None)
         assert err != 0, bad
+
+
+# --- kernel 3: constrained element-block SpMV -------------------------------
+
+@pytest.fixture(scope="module")
+def emulated_spmv(tmp_path_factory):
+    """Kernel 3's source as a host library, bound like the real one."""
+    return K._bind_spmv(host_library(tmp_path_factory, "element_spmv.cu",
+                                     "-DSPMV_HOST_EMULATION"))
+
+
+@pytest.fixture(scope="module", params=[1, 2, 3], ids=["P1", "P2", "P3"])
+def pore_dofmap(request):
+    """The structured pore's dof map at P1-P3 (488 nodes at P1), its dof
+    count and the dofs' coordinates."""
+    from pnp_tpu_torch.problems import pore_case
+
+    _, space = pore_case(30, 17, degree=request.param)
+    return (torch.as_tensor(np.asarray(space.dofmap, np.int64)), space.ndof,
+            np.asarray(space.dof_coords))
+
+
+def dirichlet_masks(dofmap, ndof, coords, S):
+    """(S, ndof) masks: the bottom and top rows of dofs and a seeded tenth
+    of the rest constrained; the dof of highest incidence free in system 0
+    and constrained in system 1. Returns the masks and that dof."""
+    rng = np.random.RandomState(ndof)
+    y = coords[:, 1]
+    wall = (y <= y.min() + 1e-12) | (y >= y.max() - 1e-12)
+    free = ~(wall | (rng.rand(S, ndof) < 0.1))
+    top = int(np.bincount(dofmap.reshape(-1).numpy(), minlength=ndof).argmax())
+    free[:, top] = True
+    if S > 1:
+        free[1, top] = False
+    return torch.as_tensor(free), top
+
+
+def run_emulated_spmv(lib, A, x, dofmap, ndof, free):
+    """``kernels.ElementSpmv`` on host arrays: blocks (S_A, E, n, n), S_A S
+    or 1 (stride 0), x (S, ndof), free (S, ndof) or None; y filled with NaN
+    beforehand, so that a row the kernel does not write shows."""
+    S = x.shape[0]
+    t = K.incidence_table(dofmap, ndof)
+    A, x = A.contiguous().numpy(), x.contiguous().numpy()
+    y = np.full((S, ndof), np.nan, x.dtype)
+    mask = None if free is None else free.to(torch.uint8).numpy()
+    fn = lib.element_spmv_f64 if x.dtype == np.float64 else lib.element_spmv_f32
+    E, n = dofmap.shape
+    err = fn(A.ctypes.data, E * n * n if A.shape[0] > 1 else 0,
+             x.ctypes.data, None if mask is None else mask.ctypes.data,
+             y.ctypes.data, t.dofmap.numpy().ctypes.data,
+             t.offsets.numpy().ctypes.data, t.entries.numpy().ctypes.data, S,
+             ndof, n, 0, None)
+    assert err == 0
+    return torch.as_tensor(y)
+
+
+SPMV_FORMS = ["one system", "per-system blocks", "shared blocks",
+              "unconstrained"]
+
+
+@pytest.mark.parametrize("form", SPMV_FORMS)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_spmv_source_on_host_matches_plain(emulated_spmv, pore_dofmap,
+                                           dtype, form):
+    """Kernel 3 against ``fem/assembly.py``'s plain version on the pore's
+    P1-P3 dof maps: one system under its mask (the constrained operator),
+    two systems with their own blocks and masks (the species pair), two
+    systems sharing one set of blocks (the mass matrix), and the
+    unconstrained product. Every row written, constrained rows exactly x,
+    the rest to round-off (f64 1e-13, f32 1e-5 of the output's scale), the
+    dof of highest incidence among them."""
+    from pnp_tpu_torch.fem import assembly as FA
+
+    dofmap, ndof, coords = pore_dofmap
+    E, n = dofmap.shape
+    S = 1 if form == "one system" else 2
+    rng = np.random.RandomState(n + S)
+    A = torch.tensor(rng.standard_normal((S, E, n, n)), dtype=dtype)
+    x = torch.tensor(rng.standard_normal((S, ndof)), dtype=dtype)
+    free, top = dirichlet_masks(dofmap, ndof, coords, S)
+    if form == "one system":
+        y = run_emulated_spmv(emulated_spmv, A, x, dofmap, ndof, free)[0]
+        want = FA.make_constrained_operator(A[0], dofmap, ndof, free[0])(x[0])
+        free = free[0]
+    elif form == "per-system blocks":
+        y = run_emulated_spmv(emulated_spmv, A, x, dofmap, ndof, free)
+        want = FA.make_constrained_operator(A, dofmap, ndof, free)(x)
+    elif form == "shared blocks":
+        y = run_emulated_spmv(emulated_spmv, A[:1], x, dofmap, ndof, None)
+        want = FA.spmv_batched(A[:1], x, dofmap, ndof)
+        free = None
+    else:
+        y = run_emulated_spmv(emulated_spmv, A, x, dofmap, ndof, None)
+        want = FA.spmv_batched(A, x, dofmap, ndof)
+        free = None
+    assert not torch.isnan(y).any()
+    if free is not None:
+        assert torch.equal(y[~free], x.reshape(y.shape)[~free])
+        assert bool(free[..., top].reshape(-1)[0])
+    rtol = 1e-13 if dtype == torch.float64 else 1e-5
+    scale = float(want.abs().max())
+    torch.testing.assert_close(y, want, rtol=0, atol=rtol * scale)
+    torch.testing.assert_close(y[..., top], want[..., top], rtol=0,
+                               atol=rtol * scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_spmv_source_any_order(emulated_spmv, dtype):
+    """An order that is none of P1-P3 takes the kernel with n at run time:
+    the monolithic Newton's composite (E, 9) blocks on 3 x 488 dofs."""
+    from pnp_tpu_torch.fem import assembly as FA
+    from pnp_tpu_torch.operators.pnp import composite_dofmap
+    from pnp_tpu_torch.problems import pore_case
+
+    _, space = pore_case(30, 17)
+    dofmap = composite_dofmap(torch.as_tensor(np.asarray(space.dofmap,
+                                                         np.int64)),
+                              space.ndof)
+    ndof = 3 * space.ndof
+    E, n = dofmap.shape
+    rng = np.random.RandomState(9)
+    A = torch.tensor(rng.standard_normal((1, E, n, n)), dtype=dtype)
+    x = torch.tensor(rng.standard_normal((1, ndof)), dtype=dtype)
+    free = torch.as_tensor(rng.rand(1, ndof) > 0.2)
+    y = run_emulated_spmv(emulated_spmv, A, x, dofmap, ndof, free)[0]
+    want = FA.make_constrained_operator(A[0], dofmap, ndof, free[0])(x[0])
+    rtol = 1e-13 if dtype == torch.float64 else 1e-5
+    torch.testing.assert_close(y, want, rtol=0,
+                               atol=rtol * float(want.abs().max()))
+
+
+def test_incidence_table_lists_every_block_row_once(pore_dofmap):
+    """Every (e, l) once; each dof's entries sorted by element and all of
+    that dof; the offsets the running count of each dof's incidences."""
+    dofmap, ndof, _ = pore_dofmap
+    E, n = dofmap.shape
+    t = K.incidence_table(dofmap, ndof)
+    entries, offsets = t.entries.long(), t.offsets.long()
+    assert t.dofmap.dtype == t.offsets.dtype == t.entries.dtype == torch.int32
+    assert torch.equal(t.dofmap.long(), dofmap)
+    assert torch.equal(torch.sort(entries).values, torch.arange(E * n))
+    counts = torch.bincount(dofmap.reshape(-1), minlength=ndof)
+    assert int(offsets[0]) == 0 and int(offsets[-1]) == E * n
+    assert torch.equal(offsets.diff(), counts)
+    row = torch.repeat_interleave(torch.arange(ndof), counts)
+    assert torch.equal(dofmap.reshape(-1)[entries], row)
+    # within a row: increasing flat index, so increasing element
+    step = entries.diff()
+    assert bool((step[row[1:] == row[:-1]] > 0).all())
+
+
+def test_spmv_source_rejects_bad_plans(emulated_spmv):
+    """No kernel: no order, no system, more systems than grid.y holds."""
+    dofmap = torch.tensor([[0, 1, 2]])
+    t = K.incidence_table(dofmap, 3)
+    A, x, y = np.ones(9), np.ones(3), np.zeros(3)
+    ptrs = [p.numpy().ctypes.data for p in (t.dofmap, t.offsets, t.entries)]
+    for S, n in ((1, 0), (0, 3), (65536, 3)):
+        err = emulated_spmv.element_spmv_f64(
+            A.ctypes.data, 0, x.ctypes.data, None, y.ctypes.data, *ptrs, S,
+            3, n, 0, None)
+        assert err != 0, (S, n)

@@ -290,3 +290,44 @@ def test_gj_wrapper_routes_and_checks():
             K.gj_inverse(bad)
     K.reset_launch_counts()
     assert set(K.launches.values()) == {0}
+
+
+def test_element_spmv_takes_cuda_only_and_cpu_takes_plain():
+    """Kernel 3 refuses CPU tensors; the assembly's SpMVs on the CPU take
+    the plain version and launch nothing."""
+    from pnp_tpu_torch.fem import assembly as FA
+
+    dofmap = torch.tensor([[0, 1, 2], [1, 3, 2]])
+    A = torch.arange(18, dtype=torch.float64).reshape(2, 3, 3)
+    free = torch.tensor([True, True, False, True])
+    with pytest.raises(ValueError, match="CUDA"):
+        K.ElementSpmv(A, dofmap, 4, free)
+    before = dict(K.launches)
+    x = torch.tensor([1.0, -2.0, 5.0, 0.5], dtype=torch.float64)
+    y = FA.make_constrained_operator(A, dofmap, 4, free)(x)
+    dense = torch.zeros(4, 4, dtype=torch.float64)
+    for e in range(2):
+        dense[dofmap[e][:, None], dofmap[e][None, :]] += A[e]
+    f = free.double()
+    want = (dense * f[:, None] * f[None, :] + torch.diag(1.0 - f)) @ x
+    torch.testing.assert_close(y, want, rtol=1e-15, atol=0)
+    assert K.launches == before
+
+
+def test_incidence_table_is_built_once_and_goes_with_its_dof_map():
+    """One table a dof map, shared by every apply, and refused for another
+    size; the cache entry goes when the dof map does."""
+    import gc
+
+    dofmap = torch.tensor([[0, 1, 2], [1, 3, 2]])
+    t = K.table_for(dofmap, 4)
+    assert K.table_for(dofmap, 4) is t
+    with pytest.raises(ValueError, match="not 5"):
+        K.table_for(dofmap, 5)
+    assert t.offsets.tolist() == [0, 1, 3, 5, 6]
+    assert t.entries.tolist() == [0, 1, 3, 2, 5, 4]
+    key = id(dofmap)
+    assert key in K._tables
+    del dofmap
+    gc.collect()
+    assert key not in K._tables

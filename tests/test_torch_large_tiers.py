@@ -175,8 +175,8 @@ def test_large_setup_probe(case):
     ctx = make_scalar_context(tsys, tspace, component=0, quad_order=3,
                               device="cpu")
     A_el = V.poisson_jacobian_el(ctx.vt, tsys.cylindrical, tsys.pi)
-    op = FA.make_constrained_operator_batched(A_el[None], ctx.vt.dofmap,
-                                              NDOF, ctx.free[None])
+    op = FA.make_constrained_operator(A_el[None], ctx.vt.dofmap, NDOF,
+                                      ctx.free[None])
     A_eq = torch.tensor(np.asarray(A_eq_j))[None]
     s = torch.tensor(np.asarray(s_j))
     n0 = TD.probe_failures["count"]

@@ -67,8 +67,8 @@ def systems():
             JA.make_constrained_operator(Aj, jc.dofmap, jc.ndof, jc.free),
             JA.constrained_diagonal(Aj, jc.dofmap, jc.ndof, jc.free))
         out[name + "2"] = (
-            TA.make_constrained_operator_batched(torch.stack([At] * 2),
-                                                 tc.dofmap, tc.ndof, ft),
+            TA.make_constrained_operator(torch.stack([At] * 2),
+                                         tc.dofmap, tc.ndof, ft),
             torch.stack([out[name][1]] * 2),
             JA.make_constrained_operator_batched(jnp.stack([Aj] * 2),
                                                  jc.dofmap, jc.ndof, fj),

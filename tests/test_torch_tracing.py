@@ -26,7 +26,8 @@ PROGRAM_SPANS = {
     "pnp.species_factor", "pnp.species_step", "pnp.poisson_solve",
     "krylov.bicgstab", "krylov.cg", "ras.local", "ras.coarse",
     "direct.refine", "host.sync", "host.copy", "kernels.gj_inverse",
-    "kernels.pb_residual_jacobian", "ionflux", "pnp.step", "pnp.output",
+    "kernels.pb_residual_jacobian", "kernels.element_spmv", "ionflux",
+    "pnp.step", "pnp.output",
     "pnp.checkpoint", "pnp.setup.phase_a", "pnp.setup.phase_b",
     "pnp.setup.phase_c"}
 
