@@ -10,7 +10,9 @@ at src/instationary_pnp_from_pb_md.hh:209-211) as a two-level scheme:
     greedy element-seeded aggregation;
   * Galerkin coarse matrices A_c = P^T A P formed from the element blocks
     with one accumulating ``index_put_`` (no SpMV probing);
-  * a dense Cholesky coarse solve, batched over the systems;
+  * a dense coarse solve, batched over the systems: the inverse from the
+    Cholesky factor, applied as a product (the reference's ``cho_solve``
+    to rounding);
   * damped-Jacobi pre- and post-smoothing (omega = 0.6), which keeps M
     symmetric positive definite for CG.
 
@@ -25,6 +27,13 @@ takes the same Krylov branch.
 
 The aggregation is copied from the reference line for line: it decides
 the coarse space, so the arrays must be identical.
+
+Spans (:mod:`..utils.profiling`, recorded only inside ``recording()``):
+``amg.setup`` around the aggregation (ndof, n_agg, the largest
+aggregate), ``amg.build`` around each coarse matrix and its factor (s,
+n_agg, e; one ``counters.amg_builds`` each), and in every apply two
+``amg.smooth`` (the damped-Jacobi smoothings) and one ``amg.coarse``
+(restriction, the coarse solve, prolongation).
 """
 
 from __future__ import annotations
@@ -37,7 +46,7 @@ import torch
 
 from ..fem import assembly as FA
 from ..parallel.sharding import ShardedDofmap
-from ..utils.profiling import host_read
+from ..utils.profiling import count, host_read, span
 from .block_ras import morton_order
 
 
@@ -145,20 +154,22 @@ def make_amg_context(dofmap, ndof: int, free, target_coarse: int = 256,
         device = (block_dofmap.device
                   if isinstance(block_dofmap, torch.Tensor)
                   else torch.device("cpu"))
-    free = _host(free)
-    if free.ndim == 2:
-        free = free.any(axis=0)
-    agg, n_agg = build_aggregates(_host(dofmap), ndof, free, target_coarse,
-                                  dof_coords=dof_coords)
-    if not isinstance(block_dofmap, ShardedDofmap):
-        block_dofmap = torch.as_tensor(
-            _host(block_dofmap).astype(np.int64), device=device)
-    return AmgContext(
-        agg=torch.as_tensor(agg.astype(np.int64), device=device),
-        n_agg=n_agg, dofmap=block_dofmap,
-        free=torch.as_tensor(free, device=device),
-        members=torch.as_tensor(aggregate_members(agg, n_agg),
-                                device=device), omega=omega)
+    with span("amg.setup", ndof=ndof) as sp:
+        free = _host(free)
+        if free.ndim == 2:
+            free = free.any(axis=0)
+        agg, n_agg = build_aggregates(_host(dofmap), ndof, free,
+                                      target_coarse, dof_coords=dof_coords)
+        if not isinstance(block_dofmap, ShardedDofmap):
+            block_dofmap = torch.as_tensor(
+                _host(block_dofmap).astype(np.int64), device=device)
+        members = aggregate_members(agg, n_agg)
+        sp.set(n_agg=n_agg, largest=members.shape[1])
+        return AmgContext(
+            agg=torch.as_tensor(agg.astype(np.int64), device=device),
+            n_agg=n_agg, dofmap=block_dofmap,
+            free=torch.as_tensor(free, device=device),
+            members=torch.as_tensor(members, device=device), omega=omega)
 
 
 def two_level_precond(A_el, ctx: AmgContext, diag, free=None):
@@ -179,26 +190,37 @@ def two_level_precond(A_el, ctx: AmgContext, diag, free=None):
     free_b = (free if free.ndim == 2 else free[None]).expand(S, ndof)
     n_agg = ctx.n_agg
     nc = n_agg + 1
-    # element-local aggregate ids; constrained dofs land in slot n_agg
-    safe = torch.where(ctx.agg < 0, n_agg, ctx.agg)
-    eagg = safe[ctx.dofmap]                                  # (E, n)
-    shape = (S, E, n, n)
-    Ac = torch.zeros((S, nc, nc), dtype=dt, device=dev)
-    Ac.index_put_(
-        (torch.arange(S, device=dev)[:, None, None, None].expand(shape),
-         eagg[None, :, :, None].expand(shape),
-         eagg[None, :, None, :].expand(shape)), A_b, accumulate=True)
-    if isinstance(ctx.dofmap, ShardedDofmap):
-        ctx.dofmap.all_reduce(Ac)          # this rank's shards' partial sum
-    Ac = Ac[:, :n_agg, :n_agg] + 1e-12 * torch.eye(n_agg, dtype=dt,
-                                                   device=dev)
-    # batched factor of the symmetric part, as jnp.linalg.cholesky takes
-    # it (the species stage blocks carry the drift: Ac is not symmetric);
-    # its failure flag is the build's one host read
-    Lc, info = torch.linalg.cholesky_ex((Ac + Ac.mT) / 2)
-    if host_read((info != 0).any()):
-        raise torch.linalg.LinAlgError(
-            "two_level_precond: the coarse matrix is not positive definite")
+    with span("amg.build", s=S, n_agg=n_agg, e=E):
+        count("amg_builds")
+        # element-local aggregate ids; constrained dofs land in slot n_agg
+        safe = torch.where(ctx.agg < 0, n_agg, ctx.agg)
+        eagg = safe[ctx.dofmap]                              # (E, n)
+        shape = (S, E, n, n)
+        Ac = torch.zeros((S, nc, nc), dtype=dt, device=dev)
+        Ac.index_put_(
+            (torch.arange(S, device=dev)[:, None, None, None].expand(shape),
+             eagg[None, :, :, None].expand(shape),
+             eagg[None, :, None, :].expand(shape)), A_b, accumulate=True)
+        if isinstance(ctx.dofmap, ShardedDofmap):
+            ctx.dofmap.all_reduce(Ac)      # this rank's shards' partial sum
+        Ac = Ac[:, :n_agg, :n_agg] + 1e-12 * torch.eye(n_agg, dtype=dt,
+                                                       device=dev)
+        # batched factor of the symmetric part, as jnp.linalg.cholesky
+        # takes it (the species stage blocks carry the drift: Ac is not
+        # symmetric); its failure flag is the build's one host read
+        Lc, info = torch.linalg.cholesky_ex((Ac + Ac.mT) / 2)
+        if host_read((info != 0).any()):
+            raise torch.linalg.LinAlgError(
+                "two_level_precond: the coarse matrix is not positive "
+                "definite")
+        # its inverse from the factor, applied as a product and a sum: no
+        # cuBLAS call inside the apply, which a CUDA graph of the CG
+        # iteration captures on a stream of its own (cuBLAS would hold a
+        # second 32 MiB workspace for it on an H100)
+        Linv = torch.linalg.solve_triangular(
+            Lc, torch.eye(n_agg, dtype=dt, device=dev).expand(S, -1, -1),
+            upper=False)
+        Ac_inv = Linv.mT @ Linv
 
     inv_d = torch.where(free_b, ctx.omega / diag_b, 0.0)
     agg_ok = ctx.agg >= 0
@@ -217,15 +239,14 @@ def two_level_precond(A_el, ctx: AmgContext, diag, free=None):
 
     def M(r):
         rb = r[None] if squeeze else r
-        z = inv_d * rb                                       # pre-smooth
-        resid = rb - apply_A(z)
-        # two triangular solves, as jax.scipy's cho_solve (cholesky_solve
-        # would read an error flag back on the CPU)
-        y = torch.linalg.solve_triangular(Lc, restrict(resid)[..., None],
-                                          upper=False)
-        zc = torch.linalg.solve_triangular(Lc.mT, y, upper=True)[..., 0]
-        z = z + prolong(zc)                                  # coarse correction
-        z = z + inv_d * (rb - apply_A(z))                    # post-smooth
+        with span("amg.smooth"):                             # pre-smooth
+            z = inv_d * rb
+            resid = rb - apply_A(z)
+        with span("amg.coarse"):                             # coarse correction
+            zc = (Ac_inv * restrict(resid)[:, None, :]).sum(dim=-1)
+            z = z + prolong(zc)
+        with span("amg.smooth"):                             # post-smooth
+            z = z + inv_d * (rb - apply_A(z))
         out = torch.where(free_b, z, rb)
         return out[0] if squeeze else out
 

@@ -13,6 +13,7 @@ from typing import Callable
 
 import torch
 
+from ..parallel.sharding import ShardedDofmap
 from .amg import two_level_precond
 from .krylov import cg, bicgstab
 from .precond import (jacobi_precond, chebyshev_jacobi_precond,
@@ -20,7 +21,7 @@ from .precond import (jacobi_precond, chebyshev_jacobi_precond,
 
 
 def make_krylov_solver(name: str, maxiter: int, ssor_k: int = 3,
-                       amg_ctx=None):
+                       amg_ctx=None, cg_restart: int = 0):
     """Return ``solve(op, b, x0, diag, reduction, A_el=None, lam=None)``.
 
       BCGS_SSORk  -> BiCGSTAB + Chebyshev-Jacobi(k)
@@ -31,6 +32,10 @@ def make_krylov_solver(name: str, maxiter: int, ssor_k: int = 3,
       CG_AMG_SSOR -> CG + two-level aggregation AMG (needs ``amg_ctx`` and
                      the element Jacobian blocks ``A_el``; Chebyshev-Jacobi
                      otherwise, as in the reference)
+
+    ``cg_restart``: ``CG_AMG_SSOR``'s restart period (:func:`.krylov.cg`;
+    0, never, as the reference). Under the two-level AMG on a whole dof
+    map the CG iteration is a CUDA graph on the card (``cg``'s ``graph``).
     """
     if name == "BCGS_NOPREC":
         def solve(op, b, x0, diag, reduction, A_el=None, lam=None):
@@ -54,13 +59,17 @@ def make_krylov_solver(name: str, maxiter: int, ssor_k: int = 3,
             return bicgstab(op, b, x0, M, reduction, maxiter)
     elif name == "CG_AMG_SSOR":
         def solve(op, b, x0, diag, reduction, A_el=None, lam=None):
+            graph = False
             if amg_ctx is not None and A_el is not None:
                 M = two_level_precond(A_el, amg_ctx, diag)
+                # whole tables only: a sharded scatter may sum over ranks
+                graph = not isinstance(amg_ctx.dofmap, ShardedDofmap)
             else:
                 if lam is None:
                     lam = estimate_dinv_spectral_radius(op, diag, b + 1e-30)
                 M = chebyshev_jacobi_precond(op, diag, lam, degree=ssor_k)
-            return cg(op, b, x0, M, reduction, maxiter)
+            return cg(op, b, x0, M, reduction, maxiter, restart=cg_restart,
+                      graph=graph)
     else:
         raise ValueError(f"unknown linear solver variant '{name}'")
     return solve

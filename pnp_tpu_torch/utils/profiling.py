@@ -17,9 +17,9 @@ clock interval (``time.perf_counter_ns``) and its attributes, and opens a
 ``torch.profiler.record_function`` of its name, so that a running
 profiler puts it on the timeline of the device's activity; each host read
 or copy is a ``host.sync`` or ``host.copy`` span and adds one to
-``counters.host_syncs``. The recorder never synchronises: a span's
-duration is host time, and what the device did inside it comes from the
-trace.
+``counters.host_syncs``; :func:`count` adds one to another counter. The
+recorder never synchronises: a span's duration is host time, and what the
+device did inside it comes from the trace.
 """
 
 from __future__ import annotations
@@ -38,9 +38,12 @@ import torch
 @dataclasses.dataclass
 class Counters:
     """What the recorder counts: ``host_syncs``, the blocking device-to-host
-    reads and copies (:func:`host_read`, :func:`host_copy`)."""
+    reads and copies (:func:`host_read`, :func:`host_copy`);
+    ``amg_builds``, the AMG preconditioner's coarse matrices built and
+    factored (one a Krylov solve under ``CG_AMG_SSOR``)."""
 
     host_syncs: int = 0
+    amg_builds: int = 0
 
 
 #: the recorder's counts; incremented only inside :func:`recording`, which
@@ -113,6 +116,18 @@ def span(name: str, **attrs):
     return Span(name, attrs)
 
 
+def is_recording() -> bool:
+    """Whether a :func:`recording` is open."""
+    return _on
+
+
+def count(name: str) -> None:
+    """Add one to the counter ``name`` inside :func:`recording`; nothing
+    outside it."""
+    if _on:
+        setattr(counters, name, getattr(counters, name) + 1)
+
+
 def host_read(t):
     """The Python value of a one-element tensor (``t.item()``: a bool,
     int or float): the one way the solvers read a device scalar to decide
@@ -167,7 +182,8 @@ def recording():
     """Record spans and counts over the body; yields the
     :class:`Recording`. Resets :data:`counters` on entry."""
     global _on, _spans
-    counters.host_syncs = 0
+    for f in dataclasses.fields(counters):
+        setattr(counters, f.name, 0)
     rec = Recording(spans=[], counters=counters)
     _spans, _on = rec.spans, True
     try:

@@ -61,7 +61,10 @@ guard go through ``host_copy`` and ``host_read``.
 
 ``CG_AMG_SSOR`` runs CG under two-level aggregation AMG above the dense
 tier and on element-sharded tables (one aggregation for phi, one for the
-species pair).
+species pair). The species stage operators carry the drift, so they are
+not symmetric: their CG restarts every ``SPECIES_CG_RESTART`` iterations
+(the reference never restarts; plain CG stalls above the stage tolerance
+from 47,745 dofs on, and converges within the period below that).
 
 ``device_mesh`` (K element shards, :mod:`..parallel.sharding`): the
 species and Poisson element tables (orders 2, 5 and 3) are split over the
@@ -125,6 +128,12 @@ F64 = torch.float64
 #: equilibrated and unscaled inside kernel 1's wrapper); above it, up to
 #: ``poisson_inv_threshold``, the very-large tier keeps the inverse scaled
 POISSON_INV_MAX_DOFS = 16384
+
+#: the restart period of the species stages' CG under ``CG_AMG_SSOR``
+#: (:func:`..solvers.krylov.cg`): the pore case's stages take 12-13
+#: iterations at 12,097 dofs, 21-23 restarted at 47,745 and 42-44 at 189,697,
+#: where plain CG stalls above the stage tolerance
+SPECIES_CG_RESTART = 15
 
 
 def _spectral_probe(ndof: int, device):
@@ -345,7 +354,8 @@ def build_pnp_system(
                 sys.linearSolver, sys.linearSolverIterations,
                 amg_ctx=make_amg_context(space.dofmap, ndof, free_pair,
                                          dof_coords=coords,
-                                         block_dofmap=vt2.dofmap))
+                                         block_dofmap=vt2.dofmap),
+                cg_restart=SPECIES_CG_RESTART)
 
         M_el = V.mass_jacobian_el(vt5, 1.0, False, pi)  # planar (as the ref)
         # one mass matrix for both species; vt5 and vt2 share a dof map

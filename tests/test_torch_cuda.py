@@ -627,3 +627,64 @@ def test_sharded_dofmap_keeps_its_scatter(cuda):
                                atol=1e-13 * float(want.abs().max()))
     torch.testing.assert_close(got_b[0], FA.spmv(A, x, vt.dofmap, space.ndof),
                                rtol=0, atol=1e-13 * float(want.abs().max()))
+
+
+def test_cg_amg_graph_replays_the_eager_iteration(cuda):
+    """CG under the two-level AMG on the card, two systems, restarted every
+    4 iterations: the solver's CUDA-graph loop gives the eager loop's
+    iteration count and bits, launches kernel 3 from the host only outside
+    the replays, allocates at its peak no more than 4 MiB beyond the eager
+    loop's (no library workspace for the capture stream), and a third
+    solve reserves no more memory than the second (the captures share one
+    pool)."""
+    from pnp_tpu_torch.fem import assembly as FA
+    from pnp_tpu_torch.operators import volume as V
+    from pnp_tpu_torch.solvers import amg, krylov
+    from pnp_tpu_torch.solvers import linear_problem as LP
+
+    space = FunctionSpace(rect_mesh(48, 48, 1.0, 1.0), 1)
+    vt = build_volume_tables(space, 2, cuda)
+    n = space.ndof
+    A = V.laplace_jacobian_el(vt)
+    A_el = torch.stack([A, 2.0 * A])
+    free = torch.ones((2, n), dtype=torch.bool, device=cuda)
+    edge = torch.as_tensor(space.bedge_dofs, device=cuda).unique()
+    free[0, edge] = False
+    free[1, edge[::2]] = False
+    op = FA.make_constrained_operator(A_el, vt.dofmap, n, free)
+    diag = torch.where(free, FA.scatter_add_batched(torch.diagonal(
+        A_el, dim1=-2, dim2=-1), vt.dofmap, n), 1.0)
+    t = torch.arange(n, dtype=torch.float64, device=cuda)
+    b = torch.stack([torch.sin(t), torch.cos(0.5 * t)]) * free
+    ctx = amg.make_amg_context(vt.dofmap, n, free, 64,
+                               dof_coords=space.dof_coords)
+    K.build()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    n0 = K.launches["element_spmv"]
+    eager = krylov.cg(op, b, torch.zeros_like(b),
+                      amg.two_level_precond(A_el, ctx, diag), 1e-10, 2000,
+                      restart=4)
+    n_eager = K.launches["element_spmv"] - n0
+    torch.cuda.synchronize()
+    peak_eager = torch.cuda.max_memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    solve = LP.make_krylov_solver("CG_AMG_SSOR", 2000, amg_ctx=ctx,
+                                  cg_restart=4)
+    n0 = K.launches["element_spmv"]
+    got = solve(op, b, torch.zeros_like(b), diag, 1e-10, A_el=A_el)
+    n_graph = K.launches["element_spmv"] - n0
+    torch.cuda.synchronize()
+    peak_graph = torch.cuda.max_memory_allocated(cuda)
+    assert peak_graph - peak_eager < 4 * 2 ** 20, (peak_graph, peak_eager)
+    assert eager.converged and eager.iterations > 8
+    assert got.iterations == eager.iterations
+    assert torch.equal(got.x, eager.x)
+    assert n_graph < n_eager / 2, (n_graph, n_eager)
+    solve(op, b, torch.zeros_like(b), diag, 1e-10, A_el=A_el)
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved(cuda)
+    again = solve(op, b, torch.zeros_like(b), diag, 1e-10, A_el=A_el)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_reserved(cuda) == reserved
+    assert torch.equal(again.x, eager.x)

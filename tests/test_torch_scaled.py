@@ -342,6 +342,6 @@ def test_profiling(tmp_path):
     with TPROF.maybe_trace(None) as none:
         assert none is None
     summary = json.loads((tmp_path / "tr" / "spans.json").read_text())
-    assert summary["counters"] == {"host_syncs": 1}
+    assert summary["counters"] == {"host_syncs": 1, "amg_builds": 0}
     assert summary["spans"]["host.sync"]["count"] == 1
     assert TPROF.counters == TPROF.Counters(host_syncs=1)

@@ -141,6 +141,32 @@ def test_linear_solver_variants(systems, variant):
     close(ut, uj, rtol=RTOL)
 
 
+def test_cg_restart_converges_where_plain_cg_stalls():
+    """``krylov.cg(restart=)``, the species stages' CG under
+    ``CG_AMG_SSOR``: on a convection-diffusion operator that is not
+    symmetric plain CG stalls and never reaches the tolerance, while CG
+    restarted every 15 iterations converges (to the true residual); a
+    solve that converges within the period is plain CG, bit for bit."""
+    n = 400
+    one = torch.ones(n - 1, dtype=torch.float64)
+    A = (torch.diag(torch.full((n,), 2.01, dtype=torch.float64))
+         - 1.1 * torch.diag(one, -1) - 0.9 * torch.diag(one, 1))
+    b = torch.sin(0.37 * torch.arange(n, dtype=torch.float64)) + 0.2
+    x0 = torch.zeros_like(b)
+    plain = TK.cg(lambda x: A @ x, b, x0, None, 1e-6, 2000)
+    again = TK.cg(lambda x: A @ x, b, x0, None, 1e-6, 2000, restart=15)
+    assert not plain.converged and plain.iterations == 2000
+    assert again.converged and again.iterations < 1000
+    assert float(torch.linalg.vector_norm(b - A @ again.x)
+                 / torch.linalg.vector_norm(b)) < 2e-6
+    S = (A + A.T) / 2
+    short = TK.cg(lambda x: S @ x, b, x0, None, 1e-8, 2000)
+    within = TK.cg(lambda x: S @ x, b, x0, None, 1e-8, 2000,
+                   restart=short.iterations + 1)
+    assert short.converged and within.iterations == short.iterations
+    assert torch.equal(within.x, short.x)
+
+
 def test_amg_variant_not_ported(systems):
     """``CG_AMG_SSOR`` is ported: CG under two-level aggregation AMG on the
     SPD pore operator, with the reference's iteration count and iterate

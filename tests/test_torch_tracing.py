@@ -1,7 +1,8 @@
 """The port's span recorder and host-sync counter
 (``pnp_tpu_torch.utils.profiling``) on the CPU: spans nest and keep their
 attributes, nothing is recorded outside ``recording()``, a Krylov solve
-counts its reads, and over a species step and a Poisson solve of the
+counts its reads, an AMG solve records its build and its applies, and
+over a species step and a Poisson solve of the
 production system, on each of its Poisson tiers, the counter equals both
 the host reads the profiler sees and the tensor reads Python makes; on
 the card (``-m cuda``, with ``--noconftest``: this module imports no
@@ -16,8 +17,14 @@ import torch
 from torch.overrides import TorchFunctionMode
 
 from pnp_tpu_torch import problems
+from pnp_tpu_torch.fem import assembly as FA
+from pnp_tpu_torch.fem.geometry import build_volume_tables
+from pnp_tpu_torch.fem.space import FunctionSpace
+from pnp_tpu_torch.meshio.structured import rect_mesh
 from pnp_tpu_torch.operators import kernels as K
-from pnp_tpu_torch.solvers import krylov
+from pnp_tpu_torch.operators import volume as V
+from pnp_tpu_torch.solvers import amg, krylov
+from pnp_tpu_torch.solvers import linear_problem as LP
 from pnp_tpu_torch.utils import profiling as P
 from pnp_tpu_torch.workloads import instationary_pnp_from_pb as W
 
@@ -25,7 +32,7 @@ from pnp_tpu_torch.workloads import instationary_pnp_from_pb as W
 PROGRAM_SPANS = {
     "pnp.species_factor", "pnp.species_step", "pnp.poisson_solve",
     "krylov.bicgstab", "krylov.cg", "ras.local", "ras.coarse",
-    "direct.refine", "host.sync", "host.copy", "kernels.gj_inverse",
+    "amg.setup", "amg.build", "amg.smooth", "amg.coarse", "direct.refine", "host.sync", "host.copy", "kernels.gj_inverse",
     "kernels.pb_residual_jacobian", "kernels.element_spmv", "ionflux",
     "pnp.step", "pnp.output",
     "pnp.checkpoint", "pnp.setup.phase_a", "pnp.setup.phase_b",
@@ -47,7 +54,7 @@ CASES = {
     "krylov": ("krylov", "BCGS_Jacobi", dict(dense_poisson_threshold=0),
                {"krylov.bicgstab"}),
     "amg": ("krylov", "CG_AMG_SSOR", dict(dense_poisson_threshold=0),
-            {"krylov.cg"}),
+            {"krylov.cg", "amg.build", "amg.smooth", "amg.coarse"}),
 }
 
 #: what ``torch.cuda.set_sync_debug_mode("warn")`` says at each operation
@@ -140,6 +147,55 @@ def test_a_krylov_solve_counts_k_plus_two_syncs(solver):
     syncs = [s for s in rec.spans if s.name == "host.sync"]
     assert len(syncs) == k + 2
     assert all(s.parent == solves[0].id for s in syncs)
+
+
+def test_an_amg_solve_records_one_build_and_a_coarse_span_an_apply():
+    """One CG solve under the two-level AMG of k iterations: one
+    ``amg.build`` (with its s, n_agg and e) and one count of
+    ``amg_builds``, k + 1 preconditioner applies (one before the loop),
+    each with one ``amg.coarse`` and two ``amg.smooth`` inside the
+    ``krylov.cg`` span, which opens after the build; the aggregation is
+    one ``amg.setup``. With
+    recording off the same solve records and counts nothing."""
+    space = FunctionSpace(rect_mesh(24, 24, 1.0, 1.0), 1)
+    vt = build_volume_tables(space, 2, "cpu")
+    A_el = V.laplace_jacobian_el(vt)
+    n = space.ndof
+    free = torch.ones(n, dtype=torch.bool)
+    free[torch.as_tensor(space.bedge_dofs).unique()] = False
+    op = FA.make_constrained_operator(A_el, vt.dofmap, n, free)
+    diag = FA.constrained_diagonal(A_el, vt.dofmap, n, free)
+    b = torch.sin(torch.arange(n, dtype=torch.float64)) * free
+    with P.recording() as rec:
+        ctx = amg.make_amg_context(vt.dofmap, n, free, 64,
+                                   dof_coords=space.dof_coords)
+    assert [(s.name, s.attrs) for s in rec.spans] == [
+        ("amg.setup", {"ndof": n, "n_agg": 64,
+                       "largest": ctx.members.shape[1]})]
+    solve = LP.make_krylov_solver("CG_AMG_SSOR", 2000, amg_ctx=ctx)
+    with P.recording() as rec:
+        res = solve(op, b, torch.zeros_like(b), diag, 1e-8, A_el=A_el)
+    k = res.iterations
+    assert res.converged and k > 1
+    assert rec.counters.amg_builds == 1
+    by = {}
+    for s in rec.spans:
+        by.setdefault(s.name, []).append(s)
+    assert len(by["amg.build"]) == 1
+    assert by["amg.build"][0].attrs == {"s": 1, "n_agg": 64,
+                                        "e": A_el.shape[0]}
+    assert len(by["amg.coarse"]) == k + 1
+    assert len(by["amg.smooth"]) == 2 * (k + 1)
+    cg_id = by["krylov.cg"][0].id
+    assert by["amg.build"][0].parent is None      # built before the loop
+    assert all(s.parent == cg_id for s in by["amg.coarse"] + by["amg.smooth"])
+    P.counters.amg_builds = 0
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        off = solve(op, b, torch.zeros_like(b), diag, 1e-8, A_el=A_el)
+    assert off.iterations == k and torch.equal(off.x, res.x)
+    assert not {e.name for e in prof.events()} & PROGRAM_SPANS
+    assert P.counters.amg_builds == 0
 
 
 def _scalar_reads(prof) -> int:
