@@ -42,7 +42,8 @@ is built or imported at module import.
 Routing: a CPU tensor takes the plain PyTorch version; a CUDA tensor
 launches the kernel or raises. There is no fallback from one to the
 other. Each wrapper adds one to ``launches[name]`` where it launches its
-kernel, and nowhere else, and opens a ``kernels.<name>`` span
+kernel, and nowhere else (a call captured into a CUDA graph by
+``solvers.krylov`` is counted at each replay instead), and opens a ``kernels.<name>`` span
 (``utils.profiling``) with the batch ``b`` and the order ``n`` (kernel 3:
 the systems ``s``, the elements ``e`` and ``n``). Kernel 3's routing sits
 in ``fem/assembly.py``, whose torch ops are its plain version.

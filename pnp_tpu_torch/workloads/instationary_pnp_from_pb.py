@@ -697,7 +697,7 @@ def build_pnp_system(
         M = BR.make_two_level_precond(ctx_ras, inv_p, None, op_phi,
                                       ctx_phi.free, p1_coarse=p1_p)
         res = bicgstab(op_phi, r, torch.zeros_like(r), M, 1e-10,
-                       sys.linearSolverIterations)
+                       sys.linearSolverIterations, graph=True)
         return uphi_ - res.x, res.iterations
 
     def fused_step(uphi_, ucp_, ucm_):

@@ -632,11 +632,12 @@ def test_sharded_dofmap_keeps_its_scatter(cuda):
 def test_cg_amg_graph_replays_the_eager_iteration(cuda):
     """CG under the two-level AMG on the card, two systems, restarted every
     4 iterations: the solver's CUDA-graph loop gives the eager loop's
-    iteration count and bits, launches kernel 3 from the host only outside
-    the replays, allocates at its peak no more than 4 MiB beyond the eager
-    loop's (no library workspace for the capture stream), and a third
-    solve reserves no more memory than the second (the captures share one
-    pool)."""
+    iteration count and bits, counts kernel 3's launches in the replays as
+    the eager loop counts them (the capture launches nothing), records one
+    capture and a replay for every later iteration but the restarts,
+    allocates at its peak no more than 4 MiB beyond the eager loop's (no
+    library workspace for the capture stream), and a third solve reserves
+    no more memory than the second (the captures share one pool)."""
     from pnp_tpu_torch.fem import assembly as FA
     from pnp_tpu_torch.operators import volume as V
     from pnp_tpu_torch.solvers import amg, krylov
@@ -671,6 +672,7 @@ def test_cg_amg_graph_replays_the_eager_iteration(cuda):
     torch.cuda.reset_peak_memory_stats(cuda)
     solve = LP.make_krylov_solver("CG_AMG_SSOR", 2000, amg_ctx=ctx,
                                   cg_restart=4)
+    counts = dict(krylov.graph_counts)
     n0 = K.launches["element_spmv"]
     got = solve(op, b, torch.zeros_like(b), diag, 1e-10, A_el=A_el)
     n_graph = K.launches["element_spmv"] - n0
@@ -680,11 +682,93 @@ def test_cg_amg_graph_replays_the_eager_iteration(cuda):
     assert eager.converged and eager.iterations > 8
     assert got.iterations == eager.iterations
     assert torch.equal(got.x, eager.x)
-    assert n_graph < n_eager / 2, (n_graph, n_eager)
+    assert n_graph == n_eager, (n_graph, n_eager)
+    k = eager.iterations
+    assert krylov.graph_counts == {
+        "captures": counts["captures"] + 1,
+        "replays": counts["replays"] + k - 1 - k // 4}
     solve(op, b, torch.zeros_like(b), diag, 1e-10, A_el=A_el)
     torch.cuda.synchronize()
     reserved = torch.cuda.memory_reserved(cuda)
     again = solve(op, b, torch.zeros_like(b), diag, 1e-10, A_el=A_el)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_reserved(cuda) == reserved
+    assert torch.equal(again.x, eager.x)
+
+
+@pytest.mark.parametrize("case", ["two-level", "pair"])
+def test_bicgstab_ras_graph_replays_the_eager_iteration(cuda, case):
+    """BiCGSTAB under block RAS on the card: one system under two-level RAS
+    with the p1 coarse level, or two systems with other blocks and masks
+    under RAS. The solver's CUDA-graph loop gives the eager loop's
+    iteration count and bits, counts kernel 3's launches in the replays as
+    the eager loop counts them (the capture launches nothing), records one
+    capture and a replay for every later iteration, allocates at its peak
+    no more than cuBLAS's 32 MiB workspace for the capture stream and 4 MiB
+    beyond the eager loop's, and a third solve reserves no more memory than
+    the second (the captures share one pool)."""
+    from pnp_tpu_torch.fem import assembly as FA
+    from pnp_tpu_torch.operators import volume as V
+    from pnp_tpu_torch.solvers import block_ras as BR
+    from pnp_tpu_torch.solvers import krylov
+
+    space = FunctionSpace(rect_mesh(64, 64, 1.0, 1.0), 1)
+    vt = build_volume_tables(space, 2, cuda)
+    n = space.ndof
+    A = V.laplace_jacobian_el(vt)
+    edge = torch.as_tensor(space.bedge_dofs, device=cuda).unique()
+    ctx = BR.build_block_context_for_space(space, 256, cuda)
+    K.build()
+    t = torch.arange(n, dtype=torch.float64, device=cuda)
+    if case == "two-level":
+        free = torch.ones(n, dtype=torch.bool, device=cuda)
+        free[edge] = False
+        op = FA.make_constrained_operator(A, vt.dofmap, n, free)
+        inv = BR.build_local_inverses(ctx, A, free)
+        M = BR.make_two_level_precond(
+            ctx, inv, None, op, free, p1_coarse=BR.build_p1_coarse(
+                ctx, A, vt.dofmap, free, space.dof_coords))
+        b = torch.sin(t) * free
+    else:
+        A_el = torch.stack([A, 2.0 * A])
+        free = torch.ones((2, n), dtype=torch.bool, device=cuda)
+        free[0, edge] = False
+        free[1, edge[::2]] = False
+        op = FA.make_constrained_operator(A_el, vt.dofmap, n, free)
+        M = BR.make_ras_precond(ctx, BR.build_local_inverses(ctx, A_el, free),
+                                free)
+        b = torch.stack([torch.sin(t), torch.cos(0.5 * t)]) * free
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    n0 = K.launches["element_spmv"]
+    eager = krylov.bicgstab(op, b, torch.zeros_like(b), M, 1e-10, 2000)
+    n_eager = K.launches["element_spmv"] - n0
+    torch.cuda.synchronize()
+    peak_eager = torch.cuda.max_memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    counts = dict(krylov.graph_counts)
+    n0 = K.launches["element_spmv"]
+    got = krylov.bicgstab(op, b, torch.zeros_like(b), M, 1e-10, 2000,
+                          graph=True)
+    n_graph = K.launches["element_spmv"] - n0
+    torch.cuda.synchronize()
+    peak_graph = torch.cuda.max_memory_allocated(cuda)
+    assert peak_graph - peak_eager <= 36 * 2 ** 20, (
+        "more than cuBLAS's 32 MiB workspace for the capture stream and "
+        "4 MiB above the eager loop's peak", peak_graph, peak_eager)
+    assert eager.converged and eager.iterations > 4
+    assert got.iterations == eager.iterations
+    assert torch.equal(got.x, eager.x)
+    assert torch.equal(got.relres, eager.relres)
+    assert n_graph == n_eager, (n_graph, n_eager)
+    assert krylov.graph_counts == {
+        "captures": counts["captures"] + 1,
+        "replays": counts["replays"] + eager.iterations - 1}
+    krylov.bicgstab(op, b, torch.zeros_like(b), M, 1e-10, 2000, graph=True)
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved(cuda)
+    again = krylov.bicgstab(op, b, torch.zeros_like(b), M, 1e-10, 2000,
+                            graph=True)
     torch.cuda.synchronize()
     assert torch.cuda.memory_reserved(cuda) == reserved
     assert torch.equal(again.x, eager.x)

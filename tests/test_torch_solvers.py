@@ -20,13 +20,16 @@ from pnp_tpu.workloads.common import make_scalar_context as j_context
 from pnp_tpu.workloads.pb import solve_pb as j_solve_pb
 from pnp_tpu.operators import volume as JV
 
+from pnp_tpu_torch import problems
 from pnp_tpu_torch.fem import assembly as TA
 from pnp_tpu_torch.operators import volume as TV
+from pnp_tpu_torch.solvers import block_ras as TBR
 from pnp_tpu_torch.solvers import direct as TD
 from pnp_tpu_torch.solvers import krylov as TK
 from pnp_tpu_torch.solvers import linear_problem as TL
 from pnp_tpu_torch.solvers import precond as TP
 from pnp_tpu_torch.solvers.newton import NewtonParams, newton_solve
+from pnp_tpu_torch.utils import profiling as TPR
 from pnp_tpu_torch.workloads.common import make_scalar_context as t_context
 from pnp_tpu_torch.workloads.pb import solve_pb as t_solve_pb
 
@@ -111,6 +114,114 @@ def test_krylov(systems, solver, batched):
     assert rt.converged and bool(rj.converged)
     close(rt.x, rj.x, rtol=RTOL)
     close(rt.relres, rj.relres, rtol=1e-3, atol=1e-14)
+
+
+def _bicgstab_out_of_place(op, b, x0, M, reduction, maxiter):
+    """BiCGSTAB's loop as it stood before it updated its vectors in place,
+    frozen here with its helpers: the in-place loop must give its bits.
+    Returns (x, iterations, relres)."""
+    def norm(v):
+        return torch.sqrt(torch.sum((v * v).to(torch.float64), dim=-1,
+                                    keepdim=True)).to(v.dtype)
+
+    def dot(a, c):
+        return torch.sum((a * c).to(torch.float64), dim=-1,
+                         keepdim=True).to(a.dtype)
+
+    def nz(v):
+        return torch.where(v == 0.0, 1.0, v)
+
+    M = M if M is not None else (lambda r: r)
+    r = b - op(x0)
+    norm0 = norm(r)
+    tol = reduction * torch.clamp_min(norm0, 1e-300)
+    rhat = r
+    one = torch.ones_like(norm0)
+    x, p, v = x0, torch.zeros_like(b), torch.zeros_like(b)
+    rho, alpha, omega, k = one, one, one, 0
+    while k < maxiter and bool(torch.any(norm(r) > tol)):
+        rho_new = dot(rhat, r)
+        beta = (rho_new / nz(rho)) * (alpha / nz(omega))
+        p = r + beta * (p - omega * v)
+        phat = M(p)
+        v = op(phat)
+        alpha = rho_new / nz(dot(rhat, v))
+        s = r - alpha * v
+        shat = M(s)
+        t = op(shat)
+        omega = dot(t, s) / nz(dot(t, t))
+        x = x + alpha * phat + omega * shat
+        r = s - omega * t
+        rho = rho_new
+        k += 1
+    return x, k, (norm(r) / torch.clamp_min(norm0, 1e-300))[..., 0]
+
+
+@pytest.fixture(scope="module")
+def ras_systems():
+    """Non-symmetric mass + drift-diffusion systems of a long time step on
+    the 488-node pore case with 64-dof RAS blocks (K = 8; 10-90
+    iterations to 1e-9): one flat, and a pair whose second system has
+    other blocks and more constrained dofs; for each, no preconditioner,
+    RAS, and two-level RAS with the p1 coarse level."""
+    tsys, tspace = problems.pore_case(30, 17, 1)
+    tc = t_context(tsys, tspace, 0, 3, device="cpu")
+    n, dm = tc.ndof, tc.dofmap
+    u = torch.tensor(0.3 * np.sin(0.05 * np.arange(n)))
+    g = torch.einsum("ei,eqid->eqd", u[dm], tc.vt.gradphi)
+    mass = TV.mass_jacobian_el(tc.vt)
+    A = mass + 500.0 * TV.drift_diffusion_jacobian_el(g, tc.vt, 1.0)
+    A2 = torch.stack([A, mass + 800.0 * TV.drift_diffusion_jacobian_el(
+        -g, tc.vt, 1.0)])
+    free2 = torch.stack([tc.free, tc.free.clone()])
+    free2[1, ::7] = False
+    ctx = TBR.build_block_context_for_space(tspace, 64, "cpu")
+    coords = tspace.dof_coords
+    out = {}
+    for batched, (A_el, free) in ((False, (A, tc.free)), (True, (A2, free2))):
+        op = TA.make_constrained_operator(A_el, dm, n, free)
+        inv = TBR.build_local_inverses(ctx, A_el, free)
+        p1 = (TBR.build_p1_coarse_batched if batched
+              else TBR.build_p1_coarse)(ctx, A_el, dm, free, coords)
+        rng = np.random.RandomState(3)
+        b = torch.tensor(rng.randn(*free.shape)) * free
+        out[batched] = (op, b, {
+            "none": None,
+            "ras": TBR.make_ras_precond(ctx, inv, free),
+            "ras-p1": TBR.make_two_level_precond(ctx, inv, None, op, free,
+                                                 p1_coarse=p1)})
+    return out
+
+
+@pytest.mark.parametrize("stop", ["converged", "maxiter"])
+@pytest.mark.parametrize("precond", ["none", "ras", "ras-p1"])
+@pytest.mark.parametrize("batched", [False, True])
+def test_bicgstab_in_place_gives_the_out_of_place_bits(ras_systems, batched,
+                                                       precond, stop):
+    """``krylov.bicgstab`` updating its vectors in place gives the bits,
+    count and relative residuals of the out-of-place loop it replaced, on
+    a converging solve and on one stopped at ``maxiter``; with ``graph`` on
+    the CPU, and inside ``recording()``, the solve stays eager: the same
+    bits and no capture in ``graph_counts``."""
+    op, b, precs = ras_systems[batched]
+    M = precs[precond]
+    maxiter = 2000 if stop == "converged" else 3
+    x0 = torch.zeros_like(b)
+    want_x, want_k, want_relres = _bicgstab_out_of_place(op, b, x0, M, 1e-9,
+                                                         maxiter)
+    before = dict(TK.graph_counts)
+    got = [TK.bicgstab(op, b, x0, M, 1e-9, maxiter),
+           TK.bicgstab(op, b, x0, M, 1e-9, maxiter, graph=True)]
+    with TPR.recording():
+        got.append(TK.bicgstab(op, b, x0, M, 1e-9, maxiter, graph=True))
+    assert TK.graph_counts == before
+    assert torch.equal(x0, torch.zeros_like(b))
+    for res in got:
+        assert res.iterations == want_k
+        assert res.converged == (stop == "converged")
+        assert torch.equal(res.x, want_x)
+        assert torch.equal(res.relres, want_relres)
+    assert want_k == maxiter if stop == "maxiter" else 3 < want_k < maxiter
 
 
 @pytest.mark.parametrize("variant", ["BCGS_SSORk", "BCGS_NOPREC",
