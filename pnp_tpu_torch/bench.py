@@ -62,6 +62,7 @@ from .meshio.structured import pore_without_dna_mesh
 from .operators import kernels as K
 from .problems import pore_sysparams
 from .utils.device import resolve_device
+from .utils.profiling import synchronize
 from .workloads.instationary_pnp_from_pb import build_pnp_system
 
 BASE = (80, 44)
@@ -84,11 +85,6 @@ def _load(levels: int = 0, base=BASE):
     if levels:
         mesh = refine_uniform(mesh, levels)
     return pore_sysparams(), FunctionSpace(mesh, 1)
-
-
-def _sync(device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def _start(device) -> None:
@@ -140,15 +136,15 @@ def run_headline(n_meas: int = HEADLINE_MEAS, base=BASE, device=None,
     t0 = time.perf_counter()
     system = build_pnp_system(sys_, space, device=device, **build_kw)
     state = _presolved(system)
-    _sync(device)
+    synchronize(device)
     setup_s = time.perf_counter() - t0
     for _ in range(2):
         state = system.fused_step(*state)
-    _sync(device)
+    synchronize(device)
     t0 = time.perf_counter()
     for _ in range(n_meas):
         state = system.fused_step(*state)
-    _sync(device)
+    synchronize(device)
     elapsed = time.perf_counter() - t0
     if not _finite(*state):
         raise FloatingPointError("headline: non-finite state")
@@ -156,18 +152,18 @@ def run_headline(n_meas: int = HEADLINE_MEAS, base=BASE, device=None,
     # the step's two halves, each timed alone after one warm call
     uphi = state[0]
     ucp, ucm, _ = system.species_step(*state)
-    _sync(device)
+    synchronize(device)
     t0 = time.perf_counter()
     for _ in range(n_meas):
         ucp, ucm, _ = system.species_step(uphi, ucp, ucm)
-    _sync(device)
+    synchronize(device)
     species_ms = 1e3 * (time.perf_counter() - t0) / n_meas
     uphi, _ = system.poisson_solve(uphi, ucp, ucm)
-    _sync(device)
+    synchronize(device)
     t0 = time.perf_counter()
     for _ in range(n_meas):
         uphi, _ = system.poisson_solve(uphi, ucp, ucm)
-    _sync(device)
+    synchronize(device)
     poisson_ms = 1e3 * (time.perf_counter() - t0) / n_meas
     out = {"value": 3 * space.ndof * n_meas / elapsed,
            "nodes": space.ndof, "triangles": space.mesh.num_tris,
@@ -197,7 +193,7 @@ def run_scaled(levels: int, n_meas: int = 4, refresh: int = 4, base=BASE,
     t0 = time.perf_counter()
     system = build_pnp_system(sys_, space, device=device, **build_kw)
     state = _presolved(system)
-    _sync(device)
+    synchronize(device)
     setup_s = time.perf_counter() - t0
 
     def block(state, n):
@@ -208,10 +204,10 @@ def run_scaled(levels: int, n_meas: int = 4, refresh: int = 4, base=BASE,
         return state
 
     state = block(state, 1)
-    _sync(device)
+    synchronize(device)
     t0 = time.perf_counter()
     state = block(state, n_meas)
-    _sync(device)
+    synchronize(device)
     elapsed = time.perf_counter() - t0
     if not _finite(*state):
         raise FloatingPointError(f"scaled L{levels}: non-finite state")
@@ -220,19 +216,19 @@ def run_scaled(levels: int, n_meas: int = 4, refresh: int = 4, base=BASE,
     factor = system.species_factor(uphi)
     ucp2, ucm2, _ = system.species_step_reuse(factor, uphi, ucp, ucm)
     uphi2, _ = system.poisson_solve(uphi, ucp2, ucm2)
-    _sync(device)
+    synchronize(device)
     t0 = time.perf_counter()
     factor = system.species_factor(uphi2)
-    _sync(device)
+    synchronize(device)
     factor_ms = 1e3 * (time.perf_counter() - t0)
     t0 = time.perf_counter()
     ucp2, ucm2, species_its = system.species_step_reuse(factor, uphi2, ucp2,
                                                         ucm2)
-    _sync(device)
+    synchronize(device)
     species_ms = 1e3 * (time.perf_counter() - t0)
     t0 = time.perf_counter()
     uphi2, poisson_its = system.poisson_solve(uphi2, ucp2, ucm2)
-    _sync(device)
+    synchronize(device)
     poisson_ms = 1e3 * (time.perf_counter() - t0)
     out = {"levels": levels, "nodes": space.ndof,
            "triangles": space.mesh.num_tris,

@@ -62,6 +62,7 @@ from ..solvers import schwarz as SW
 from ..solvers.krylov import bicgstab
 from ..solvers.newton import NewtonParams, NewtonResult, newton_solve
 from ..timestepping.tableaux import Tableau, alexander2
+from ..utils.profiling import synchronize
 from .common import make_scalar_context
 
 F64 = torch.float64
@@ -73,11 +74,6 @@ TWO_LEVEL_DOFS = 8192
 
 def _host(t) -> np.ndarray:
     return t.detach().cpu().numpy()
-
-
-def _sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def partition_volume_tables(ctx: DistContext, vt: VolumeTables) -> VolumeTables:
@@ -233,7 +229,7 @@ def build_dist_pnp_system(
         pb_np = (_host(pb_field) if isinstance(pb_field, torch.Tensor)
                  else pb_field)
         pb, pb_iters, pb_builds = put_vec(pb_np), 0, 0
-    _sync(device)
+    synchronize(device)
     PD.barrier(layout)
     pb_seconds = _time.perf_counter() - t0
 
@@ -263,7 +259,7 @@ def build_dist_pnp_system(
     else:
         poisson_tier = "schwarz"
         M_phi = SW.make_schwarz_precond(ctx, A_phi, free_phi)
-    _sync(device)
+    synchronize(device)
     poisson_setup_seconds = _time.perf_counter() - t0
 
     def _build_K_pair(uphi_):
@@ -464,7 +460,7 @@ def run_distributed_pnp_from_pb(
     dt = system.dt
     if presolve_potential:
         uphi = system.poisson_solve(uphi, uc)[0]
-    _sync(device)
+    synchronize(device)
     PD.barrier(layout)
     setup_seconds = _time.perf_counter() - t_setup
 
@@ -521,7 +517,7 @@ def run_distributed_pnp_from_pb(
             kp, ok = 0, True
             if i % sys.potentialUpdateFreq == 0:
                 uphi, kp, ok = system.poisson_solve(uphi, uc)
-            _sync(device)
+            synchronize(device)
             PD.barrier(layout)
             step_ms.append(1e3 * (_time.perf_counter() - t_step))
             species_its.append(k)

@@ -90,7 +90,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time as _time
-from typing import Any, Callable, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
@@ -117,7 +117,7 @@ from ..parallel.distributed import RankLayout, as_layout, is_coordinator
 from ..parallel.sharding import (make_device_mesh, replicate,
                                  shard_volume_tables)
 from ..utils.device import resolve_device
-from ..utils.profiling import host_copy, host_read, span
+from ..utils.profiling import host_copy, host_read, span, synchronize
 from .common import make_scalar_context
 from .pb import solve_pb
 
@@ -135,15 +135,56 @@ POISSON_INV_MAX_DOFS = 16384
 #: where plain CG stalls above the stage tolerance
 SPECIES_CG_RESTART = 15
 
+#: relative tolerance of the species stage solves (the reference's,
+#: src/instationary_pnp_from_pb_md.hh:383-386)
+STAGE_REDUCTION = 1e-5
+
+class PoissonTier(NamedTuple):
+    name: str            # dense | inverse | inverse_large | ras | krylov
+    amg: bool = False    # krylov under CG_AMG_SSOR: with its aggregation
+
+
+class SpeciesPath(NamedTuple):
+    name: str                 # dense | ras | ras_stage | krylov
+    rank1: bool = False       # dense, P1: the drift block's rank-1 form
+    two_level: bool = False   # ras: with the batched p1 coarse level
+    mid: bool = False         # ras: the mid-size tier's tagged factor
+
+
+def choose_tiers(ndof: int, linear_solver: str, sharded: bool,
+                 uniform_stage_diag: bool, degree: int,
+                 dense_poisson_threshold: int, poisson_inv_threshold: int,
+                 species_inv_threshold: int, species_two_level: bool):
+    """``(PoissonTier, SpeciesPath)`` of :func:`build_pnp_system` (whose
+    docstring gives the bounds). One factor serves every stage only where
+    the stage diagonals are uniform; the species Krylov path also carries
+    the AMG aggregation. A very-large inverse that fails its probe at
+    setup runs as "ras"."""
+    if not sharded and ndof <= dense_poisson_threshold:
+        poisson = PoissonTier("dense")
+    elif sharded or linear_solver != "BCGS_SSORk":
+        poisson = PoissonTier("krylov", amg=linear_solver == "CG_AMG_SSOR")
+    elif ndof <= min(poisson_inv_threshold, POISSON_INV_MAX_DOFS):
+        poisson = PoissonTier("inverse")
+    elif ndof <= poisson_inv_threshold:
+        poisson = PoissonTier("inverse_large")
+    else:
+        poisson = PoissonTier("ras")
+    if poisson.name == "dense" and uniform_stage_diag:
+        species = SpeciesPath("dense", rank1=degree == 1)
+    elif poisson.name in ("dense", "krylov"):
+        species = SpeciesPath("krylov")
+    elif uniform_stage_diag:
+        species = SpeciesPath("ras", two_level=species_two_level,
+                              mid=ndof <= species_inv_threshold)
+    else:
+        species = SpeciesPath("ras_stage")
+    return poisson, species
+
 
 def _spectral_probe(ndof: int, device):
     """The start vector of the lambda_max(D^-1 A) power iterations."""
     return torch.sin(torch.arange(ndof, dtype=F64, device=device) * 0.7) + 1.1
-
-
-def _sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def element_mesh(device_mesh, device):
@@ -227,6 +268,11 @@ class PnpSystem:
     pb_seconds: float = 0.0      # phase A wall time (host clock, synced)
     poisson_setup_seconds: float = 0.0   # phase C's Poisson setup (synced)
 
+    def kind_of(self, factor) -> Optional[str]:
+        """The kind of a step's species factor (None: it built its own)."""
+        return (factor[0] if self.mid_species and factor is not None
+                else self.factor_kind)
+
 
 def build_pnp_system(
     sys: Sysparams,
@@ -235,7 +281,6 @@ def build_pnp_system(
     device_mesh=None,
     pb_field=None,
     dense_poisson_threshold: int = 8192,
-    stage_reduction: float = 1e-5,
     ras_block_size: int = 256,
     poisson_inv_threshold: int = 49152,
     species_inv_threshold: int = 0,
@@ -244,9 +289,8 @@ def build_pnp_system(
 ) -> PnpSystem:
     """Build the production pipeline on ``device`` (default: the current
     CUDA device; raises without one, see ``utils.device.resolve_device``).
+    :func:`choose_tiers` picks the Poisson tier and the species path once.
 
-    ``stage_reduction``: relative tolerance of the species stage solves
-    (reference 1e-5, src/instationary_pnp_from_pb_md.hh:383-386).
     ``dense_poisson_threshold``: the dense tier's size bound; above it
     (with ``BCGS_SSORk``) the block-RAS tier with blocks of about
     ``ras_block_size`` dofs, and with any other solver variant that
@@ -264,7 +308,7 @@ def build_pnp_system(
     ``parallel.sharding.make_device_mesh``; its device is the run's); the
     dense tier and block-RAS are then off (see the module docstring);
     under ``CG_AMG_SSOR`` a K that does not divide the element count
-    raises ``ValueError``.
+    raises ``ValueError``. The species stages solve to STAGE_REDUCTION.
     """
     mesh, device = element_mesh(device_mesh, device)
     tab = tableau if tableau is not None else alexander2()
@@ -282,20 +326,14 @@ def build_pnp_system(
     b_tab = [[float(v) for v in row] for row in tab.B]
     stages = tab.stages
     a01, b01 = a_tab[0][1], b_tab[0][1]
-    # one factor serves every stage only if the stage diagonals agree
-    uniform_stage_diag = all(
-        a_tab[i][i + 1] == a01 and b_tab[i][i + 1] == b01
-        for i in range(stages))
     # raises for an unknown variant
     krylov = make_krylov_solver(sys.linearSolver, sys.linearSolverIterations)
-    use_dense = ndof <= dense_poisson_threshold and mesh is None
-    use_block_ras = (mesh is None and not use_dense
-                     and sys.linearSolver == "BCGS_SSORk")
-    use_dense_species = use_dense and uniform_stage_diag
-    use_ras_factor = use_block_ras and uniform_stage_diag
-    use_species_krylov = not use_dense_species and not use_block_ras
-    use_mid_species = use_ras_factor and ndof <= species_inv_threshold
-    species_two_level = species_two_level and use_block_ras
+    poisson, species = choose_tiers(
+        ndof, sys.linearSolver, mesh is not None,
+        all(a_tab[i][i + 1] == a01 and b_tab[i][i + 1] == b01
+            for i in range(stages)),
+        space.degree, dense_poisson_threshold, poisson_inv_threshold,
+        species_inv_threshold, species_two_level)
 
     # ---- Phase A: PB bootstrap ------------------------------------------
     with span("pnp.setup.phase_a"):
@@ -308,7 +346,7 @@ def build_pnp_system(
             pb_iters = 0
         if mesh is not None:
             pb = replicate(mesh, pb)
-        _sync(device)
+        synchronize(device)
         pb_seconds = _time.perf_counter() - t0
 
     # ---- Phase B: constraints + initial fields --------------------------
@@ -329,6 +367,117 @@ def build_pnp_system(
             for c in (0, 1, 2))
 
     # ---- Phase C: operators + the Poisson setup --------------------------
+    # each tier's setup returns (tier, pre, solve(uphi, ucp, ucm, pre) ->
+    # (uphi', iterations)); every re-solve is to 1e-10 (reference :349-350)
+    def _poisson_residual(uphi_, ucp_, ucm_):
+        dm = vt_phi.dofmap
+        r_el = V.poisson_residual_el(uphi_[dm], ucp_[dm], ucm_[dm], vt_phi,
+                                     sys.l_b, sys.cylindrical, pi)
+        return ctx_phi.constrain(FA.scatter_add(r_el, dm, ndof)
+                                 + ctx_phi.flux_vector)
+
+    def dense_setup():
+        A_phi_dense = FA.dense_constrained_matrix(A_phi_el, vt_phi.dofmap,
+                                                  ndof, ctx_phi.free)
+        # charge coupling: the Poisson residual is affine in w = cm - cp,
+        # r = A u + M4 w + flux; M4 dense with Dirichlet rows zeroed
+        M4_el = V.mass_jacobian_el(vt_phi, 4.0 * sys.l_b * pi,
+                                   sys.cylindrical, pi)
+        M4_dense = torch.zeros((ndof, ndof), dtype=F64, device=device)
+        E_phi, n_phi = vt_phi.dofmap.shape
+        M4_dense.index_put_(
+            (vt_phi.dofmap[:, :, None].expand(E_phi, n_phi, n_phi),
+             vt_phi.dofmap[:, None, :].expand(E_phi, n_phi, n_phi)),
+            M4_el, accumulate=True)
+        M4_dense = M4_dense * ctx_phi.free.to(F64)[:, None]
+        u_bc = torch.where(ctx_phi.free, 0.0, ctx_phi.dirichlet)
+        rhs_bc = ctx_phi.constrain(FA.spmv(A_phi_el, u_bc, vt_phi.dofmap,
+                                           ndof) + ctx_phi.flux_vector)
+        # phi* = q + P (cm - cp),  P = -Ainv M4,  q = u_bc - Ainv r(u_bc):
+        # exact for any current phi (the decoupled Poisson operator is
+        # constant), so one matvec a re-solve. One-time f64 inverse,
+        # outside any kernel (as in the reference).
+        Ainv = torch.linalg.inv(A_phi_dense)
+
+        def solve(uphi_, ucp_, ucm_, pre):
+            P_phi, q_phi = pre
+            return q_phi + P_phi @ (ucm_ - ucp_), 1
+
+        return "dense", (-(Ainv @ M4_dense), u_bc - Ainv @ rhs_bc), solve
+
+    def krylov_setup():
+        # another solver variant above the dense tier: its Krylov solve on
+        # the assembled diagonal, lambda_max(D^-1 A) estimated once (the
+        # operator is constant) with 1.2 headroom
+        nonlocal lam_phi
+        diag = FA.constrained_diagonal(A_phi_el, vt_phi.dofmap, ndof,
+                                       ctx_phi.free)
+        lam_phi = 1.2 * estimate_dinv_spectral_radius(
+            op_phi, diag, _spectral_probe(ndof, device))
+
+        def solve(uphi_, ucp_, ucm_, pre):
+            r = _poisson_residual(uphi_, ucp_, ucm_)
+            res = krylov_phi(op_phi, r, torch.zeros_like(r), pre, 1e-10,
+                             A_el=A_phi_el, lam=lam_phi)
+            return uphi_ - res.x, res.iterations
+
+        return "krylov", diag, solve
+
+    def refine_setup(tier, pre):
+        # the inverse tiers: an f64-residual refinement with the f32 inverse
+        refine = make_inv_refine_solver_arg(A_phi_el[None], vt_phi.dofmap,
+                                            ndof, ctx_phi.free[None])
+
+        def solve(uphi_, ucp_, ucm_, pre_):
+            x, k = refine(pre_, _poisson_residual(uphi_, ucp_, ucm_)[None],
+                          1e-10)
+            return uphi_ - x[0], k
+
+        return tier, pre, solve
+
+    def inverse_setup():
+        # mid-size tier: one f32 inverse of the constant operator (kernel 1
+        # + the probe)
+        A32 = FA.dense_constrained_matrix(A_phi_el.to(F32), vt_phi.dofmap,
+                                          ndof, ctx_phi.free)
+        return refine_setup("inverse", inv_f32_setup(A32[None]))
+
+    def inverse_large_setup():
+        # very-large tier: one (ndof, ndof) f32 inverse, kept in its
+        # equilibrated form. Kernel 1 holds its working copy and its output
+        # beside A_eq; A_eq and the working copy are freed before the run
+        # state is made. An inverse that fails its probe leaves two-level
+        # RAS to serve.
+        dm = vt_phi.dofmap
+        A_eq, s_phi = equilibrated_dense_f32(A_phi_el, dm, ndof, ctx_phi.free)
+        X_eq, ok = inv_f32_setup_large(
+            A_eq[None], s_phi, FA.make_constrained_operator(
+                A_phi_el[None], dm, ndof, ctx_phi.free[None]))
+        del A_eq
+        if not ok:
+            del X_eq
+            return ras_setup()
+        return refine_setup("inverse_large", (X_eq, s_phi))
+
+    def ras_setup():
+        # two-level RAS factors, built once: local inverses + the
+        # piecewise-linear coarse space (3 modes per block); BiCGSTAB as
+        # one CUDA graph a re-solve
+        pre = (BR.build_local_inverses(ctx_ras, A_phi_el, ctx_phi.free),
+               BR.build_p1_coarse(ctx_ras, A_phi_el, vt_phi.dofmap,
+                                  ctx_phi.free, space.dof_coords))
+
+        def solve(uphi_, ucp_, ucm_, pre_):
+            r = _poisson_residual(uphi_, ucp_, ucm_)
+            inv_p, p1_p = pre_
+            M = BR.make_two_level_precond(ctx_ras, inv_p, None, op_phi,
+                                          ctx_phi.free, p1_coarse=p1_p)
+            res = bicgstab(op_phi, r, torch.zeros_like(r), M, 1e-10,
+                           sys.linearSolverIterations, graph=True)
+            return uphi_ - res.x, res.iterations
+
+        return "ras", pre, solve
+
     with span("pnp.setup.phase_c"):
         # species orders 2 (spatial) / 5 (mass), raised with the space degree
         vt2 = build_volume_tables(space, max(2, 2 * space.degree), device)
@@ -339,7 +488,7 @@ def build_pnp_system(
                                 for vt in (vt2, vt5, vt_phi))
 
         krylov_phi = krylov_sp = krylov
-        if sys.linearSolver == "CG_AMG_SSOR" and not use_dense:
+        if poisson.amg:
             # the AMG variant gets an aggregation on both Krylov paths, one for
             # phi and one over the union of the species masks, each of the
             # whole dof map (the same on every rank) and kept with the dof map
@@ -363,96 +512,29 @@ def build_pnp_system(
         A_phi_el = V.poisson_jacobian_el(vt_phi, sys.cylindrical, pi)
         op_phi = FA.make_constrained_operator(A_phi_el, vt_phi.dofmap, ndof,
                                               ctx_phi.free)
-        ctx_ras = solve_phi_inv = lam_phi = lam_species = None
+        ctx_ras = lam_phi = lam_species = None
         t0 = _time.perf_counter()
-        if use_dense:
-            poisson_tier = "dense"
-            A_phi_dense = FA.dense_constrained_matrix(A_phi_el, vt_phi.dofmap,
-                                                      ndof, ctx_phi.free)
-            # charge coupling: the Poisson residual is affine in w = cm - cp,
-            # r = A u + M4 w + flux; M4 dense with Dirichlet rows zeroed
-            M4_el = V.mass_jacobian_el(vt_phi, 4.0 * sys.l_b * pi,
-                                       sys.cylindrical, pi)
-            M4_dense = torch.zeros((ndof, ndof), dtype=F64, device=device)
-            E_phi, n_phi = vt_phi.dofmap.shape
-            M4_dense.index_put_(
-                (vt_phi.dofmap[:, :, None].expand(E_phi, n_phi, n_phi),
-                 vt_phi.dofmap[:, None, :].expand(E_phi, n_phi, n_phi)),
-                M4_el, accumulate=True)
-            M4_dense = M4_dense * ctx_phi.free.to(F64)[:, None]
-            u_bc = torch.where(ctx_phi.free, 0.0, ctx_phi.dirichlet)
-            rhs_bc = ctx_phi.constrain(FA.spmv(A_phi_el, u_bc, vt_phi.dofmap,
-                                               ndof) + ctx_phi.flux_vector)
-            # phi* = q + P (cm - cp),  P = -Ainv M4,  q = u_bc - Ainv r(u_bc):
-            # exact for any current phi (the decoupled Poisson operator is
-            # constant). One-time f64 inverse, outside any kernel (as in the
-            # reference).
-            Ainv = torch.linalg.inv(A_phi_dense)
-            poisson_pre = (-(Ainv @ M4_dense), u_bc - Ainv @ rhs_bc)
-            del Ainv, A_phi_dense, M4_dense
-        elif not use_block_ras:
-            # another solver variant above the dense tier: its Krylov solve on
-            # the assembled diagonal, lambda_max(D^-1 A) estimated once (the
-            # operator is constant) with 1.2 headroom
-            poisson_tier = "krylov"
-            poisson_pre = FA.constrained_diagonal(A_phi_el, vt_phi.dofmap,
-                                                  ndof, ctx_phi.free)
-            lam_phi = 1.2 * estimate_dinv_spectral_radius(
-                op_phi, poisson_pre, _spectral_probe(ndof, device))
-        else:
+        if species.name in ("ras", "ras_stage"):
             ctx_ras = BR.build_block_context_for_space(space, ras_block_size,
                                                        device)
-            poisson_pre = None
-            if ndof <= min(poisson_inv_threshold, POISSON_INV_MAX_DOFS):
-                # mid-size tier: one f32 inverse of the constant operator
-                # (kernel 1 + the probe); every 1e-10 re-solve is an
-                # f64-residual refinement with it
-                poisson_tier = "inverse"
-                A32 = FA.dense_constrained_matrix(A_phi_el.to(F32),
-                                                  vt_phi.dofmap, ndof,
-                                                  ctx_phi.free)
-                poisson_pre = inv_f32_setup(A32[None])
-                del A32
-            elif ndof <= poisson_inv_threshold:
-                # very-large tier: one (ndof, ndof) f32 inverse, kept in its
-                # equilibrated form. Kernel 1 holds its working copy and its
-                # output beside A_eq; A_eq and the working copy are freed
-                # before the run state is made
-                dm = vt_phi.dofmap
-                A_eq, s_phi = equilibrated_dense_f32(A_phi_el, dm, ndof,
-                                                     ctx_phi.free)
-                X_eq, ok = inv_f32_setup_large(
-                    A_eq[None], s_phi, FA.make_constrained_operator(
-                        A_phi_el[None], dm, ndof, ctx_phi.free[None]))
-                del A_eq
-                if ok:
-                    poisson_tier = "inverse_large"
-                    poisson_pre = (X_eq, s_phi)
-                del X_eq
-            if poisson_pre is not None:
-                solve_phi_inv = make_inv_refine_solver_arg(
-                    A_phi_el[None], vt_phi.dofmap, ndof, ctx_phi.free[None])
-            else:
-                # two-level RAS factors, built once (above the inverse tiers,
-                # or where the very-large inverse failed its probe): local
-                # inverses + the piecewise-linear coarse space (3 modes per
-                # block)
-                poisson_tier = "ras"
-                poisson_pre = (
-                    BR.build_local_inverses(ctx_ras, A_phi_el, ctx_phi.free),
-                    BR.build_p1_coarse(ctx_ras, A_phi_el, vt_phi.dofmap,
-                                       ctx_phi.free, space.dof_coords))
-        _sync(device)
+        poisson_tier, poisson_pre, solve_phi = {
+            "dense": dense_setup, "krylov": krylov_setup,
+            "inverse": inverse_setup, "inverse_large": inverse_large_setup,
+            "ras": ras_setup}[poisson.name]()
+        synchronize(device)
         poisson_setup_seconds = _time.perf_counter() - t0
 
-    # ---- species stage matrices ------------------------------------------
-    use_fast_dense = use_dense_species and space.degree == 1
-    if use_fast_dense:
+    # ---- species: the step's drift, the factor, the stages ---------------
+    def _stage_blocks(K_pair, a_ii=a01, b_ii=b01):
+        return a_ii * M_el[None] + (dt * b_ii) * K_pair
+
+    if species.rank1:
         # P1: grad(phi) and the basis gradients are constant per element,
         # so the drift block is rank-1, A_drift[e,i,j] = u_el[e,i] w_el[e,j]
         # with w_el = sum_q f shape independent of phi; the dense drift
         # matrix is U^T W, one (N,E)x(E,N) f32 matmul per step. The
-        # constant part a M + dt b K_diff is assembled once.
+        # constant part a M + dt b K_diff is assembled once. The step's
+        # drift is u_el.
         E2 = vt2.num_elements
         w_el = torch.einsum("eq,qj->ej", vt2.qw, vt2.shape)
         g_el = vt2.gradphi[:, 0]                             # (E, n, 2)
@@ -472,28 +554,40 @@ def build_pnp_system(
         pm_pair = torch.tensor([1.0, -1.0], dtype=F64,
                                device=device)[:, None, None, None]
 
-    def _drift_u_el(uphi_):
-        """P1 rank-1 drift row factor u_el[e,i] = grad(phi)_e . grad(N_i)_e."""
-        gphi_e = torch.einsum("ei,eid->ed", uphi_[vt2.dofmap], g_el)
-        return torch.einsum("ed,eid->ei", gphi_e, g_el)
+        def drift(uphi_):
+            """P1 rank-1 drift row factor
+            u_el[e,i] = grad(phi)_e . grad(N_i)_e."""
+            gphi_e = torch.einsum("ei,eid->ed", uphi_[vt2.dofmap], g_el)
+            return torch.einsum("ed,eid->ei", gphi_e, g_el)
 
-    def _build_K_pair(uphi_, u_el=None):
-        """Species drift-diffusion element Jacobians for z = +1, -1 (the
-        P1 rank-1 form on the dense tier, as the reference)."""
-        if use_fast_dense:
-            if u_el is None:
-                u_el = _drift_u_el(uphi_)
-            drift = u_el[:, :, None] * w_el[:, None, :]
-            return K_diff_el[None] + pm_pair * drift[None]
-        gphi = interp_grad(uphi_[vt2.dofmap], vt2.gradphi)
-        return torch.stack([
-            V.drift_diffusion_jacobian_el(gphi, vt2, +1.0, False, pi),
-            V.drift_diffusion_jacobian_el(gphi, vt2, -1.0, False, pi)])
+        def K_of(u_el):
+            """The drift-diffusion element Jacobians for z = +1, -1 in the
+            rank-1 form (as the reference)."""
+            return K_diff_el[None] + pm_pair * (
+                u_el[:, :, None] * w_el[:, None, :])[None]
 
-    def _stage_blocks(K_pair, a_ii=a01, b_ii=b01):
-        return a_ii * M_el[None] + (dt * b_ii) * K_pair
+        def dense_f32(u_el):
+            U32 = torch.zeros((E2, ndof), dtype=F32, device=device)
+            U32.index_put_((eidx, vt2.dofmap), u_el.to(F32))
+            D = U32.T @ W32                                  # (N, N) f32
+            return A0m32 + coef_pair[:, None, None] * (
+                fpair32[:, :, None] * fpair32[:, None, :] * D[None])
+    else:
+        def drift(uphi_):
+            """Species drift-diffusion element Jacobians for z = +1, -1."""
+            gphi = interp_grad(uphi_[vt2.dofmap], vt2.gradphi)
+            return torch.stack([
+                V.drift_diffusion_jacobian_el(gphi, vt2, +1.0, False, pi),
+                V.drift_diffusion_jacobian_el(gphi, vt2, -1.0, False, pi)])
 
-    if use_species_krylov:
+        def K_of(K_pair):
+            return K_pair
+
+        def dense_f32(K_pair):
+            return FA.dense_constrained_matrix_batched(
+                _stage_blocks(K_pair), vt2.dofmap, ndof, free_pair).to(F32)
+
+    if species.name == "krylov":
         # lambda_max(D^-1 A) of the first stage's c+ operator at the
         # initial potential, with 1.2 headroom: the estimate is reused as
         # the matrices drift
@@ -506,51 +600,48 @@ def build_pnp_system(
             _spectral_probe(ndof, device))
         del A0
 
-    def _species_dense_f32(uphi_, u_el=None):
+    def _species_dense_f32(uphi_):
         """(2, ndof, ndof) f32 constrained stage matrices at the current
         potential (the preconditioner target; exactness lives in the f64
         element blocks the refinement uses)."""
-        if use_fast_dense:
-            if u_el is None:
-                u_el = _drift_u_el(uphi_)
-            U32 = torch.zeros((E2, ndof), dtype=F32, device=device)
-            U32.index_put_((eidx, vt2.dofmap), u_el.to(F32))
-            D = U32.T @ W32                                  # (N, N) f32
-            return A0m32 + coef_pair[:, None, None] * (
-                fpair32[:, :, None] * fpair32[:, None, :] * D[None])
-        return FA.dense_constrained_matrix_batched(
-            _stage_blocks(_build_K_pair(uphi_)), vt2.dofmap, ndof,
-            free_pair).to(F32)
+        return dense_f32(drift(uphi_))
 
     def _species_local_f32(uphi_):
         """(2, K, L, L) f32 constrained local stage matrices (block-RAS)."""
         return BR.assemble_local_matrices(
-            ctx_ras, _stage_blocks(_build_K_pair(uphi_)), free_pair)
+            ctx_ras, _stage_blocks(drift(uphi_)), free_pair)
 
-    def _ras_factor(K_pair):
-        """Local stage inverses (kernel 1), plus the batched p1 coarse
-        level when ``species_two_level``."""
-        A_stage = _stage_blocks(K_pair)
+    def build_factor(d):
+        """The stage factor from the step's drift: the dense f32 stage
+        inverses, or the local stage inverses (kernel 1) with the batched
+        p1 coarse level on the two-level path; None where no one factor
+        serves every stage."""
+        if species.name == "dense":
+            return batched_inv_f32(dense_f32(d))
+        if species.name != "ras":
+            return None
+        A_stage = _stage_blocks(d)
         inv = BR.build_local_inverses(ctx_ras, A_stage, free_pair)
-        if species_two_level:
+        if species.two_level:
             return (inv, BR.build_p1_coarse_batched(
                 ctx_ras, A_stage, vt2.dofmap, free_pair, space.dof_coords))
         return inv
 
-    def _species_pair_onestep(K_pair, u_old, factor=None, ras_inv=None):
+    def _stages(d, u_old, kind, factor):
         """All DIRK stages for both species as one batched (2, ndof)
-        system. Dense tier (``factor``): inverse-preconditioned f64
-        refinement to ``stage_reduction``, one inverse for every stage of
-        the uniform diagonal. Block-RAS tier: f64 BiCGSTAB under RAS with
-        ``ras_inv`` (two-level with a (inv, p1) factor) or, with none
-        handed in, with each stage's own local inverses. Otherwise the
-        configured Krylov variant on each stage's batched diagonal."""
-        stage_apply = solve = None
-        if factor is not None:
+        system from the step's drift ``d``, each to STAGE_REDUCTION. Kind
+        "dense": f64 refinement preconditioned by the stage inverses
+        ``factor``, one for every stage of the uniform diagonal. Otherwise
+        each stage is f64 BiCGSTAB under RAS with the local inverses
+        ``factor`` ("ras"; two-level with its p1 coarse level) or its own
+        ("ras_stage"), or the configured Krylov variant on its batched
+        diagonal ("krylov")."""
+        K_pair = K_of(d)
+        if kind == "dense":
             A_stage = _stage_blocks(K_pair)
             stage_apply = FA.make_operator(A_stage, vt2.dofmap, ndof)
-            solve = make_inv_refine_solver(factor, A_stage, vt2.dofmap,
-                                           ndof, free_pair)
+            refine = make_inv_refine_solver(factor, A_stage, vt2.dofmap,
+                                            ndof, free_pair)
         alpha_apply = FA.make_operator(K_pair, vt2.dofmap, ndof)
 
         mass, alpha = {}, {}      # per-level scatters, reused across stages
@@ -573,11 +664,11 @@ def build_pnp_system(
                     hist = hist + dt * b_tab[i][j] * cached(
                         alpha, alpha_apply, j, levels)
             guess = torch.where(free_pair, levels[-1], g_pair)
-            if solve is not None:
+            if kind == "dense":
                 # the guess's mass + drift terms share the stage blocks
                 r = hist + stage_apply(guess)
                 r = torch.where(free_pair, r, 0.0)
-                z, k = solve(r, stage_reduction)
+                z, k = refine(r, STAGE_REDUCTION)
                 levels.append(guess - z)
                 iters += k
                 continue
@@ -587,43 +678,35 @@ def build_pnp_system(
             A_el = _stage_blocks(K_pair, a_ii, b_ii)
             op = FA.make_constrained_operator(A_el, vt2.dofmap, ndof,
                                               free_pair)
-            if use_block_ras:
-                inv_s, p1_s = (ras_inv if isinstance(ras_inv, tuple)
-                               else (ras_inv, None))
-                if inv_s is None:    # non-uniform stage diagonal
-                    inv_s = BR.build_local_inverses(ctx_ras, A_el, free_pair)
-                if p1_s is not None:
-                    M_s = BR.make_two_level_precond(ctx_ras, inv_s, None, op,
-                                                    free_pair, p1_coarse=p1_s)
-                else:
-                    M_s = BR.make_ras_precond(ctx_ras, inv_s, free_pair)
-                res = bicgstab(op, r, torch.zeros_like(r), M_s,
-                               stage_reduction, sys.linearSolverIterations)
-            else:
+            if kind == "krylov":
                 dg = FA.scatter_add_batched(torch.diagonal(
                     A_el, dim1=-2, dim2=-1), vt2.dofmap, ndof)
                 dg = torch.where(free_pair, dg, 1.0)
                 res = krylov_sp(op, r, torch.zeros_like(r), dg,
-                                stage_reduction, A_el=A_el, lam=lam_species)
+                                STAGE_REDUCTION, A_el=A_el, lam=lam_species)
+            else:
+                if species.two_level:
+                    inv_s, p1_s = factor
+                    M_s = BR.make_two_level_precond(ctx_ras, inv_s, None, op,
+                                                    free_pair, p1_coarse=p1_s)
+                else:    # "ras_stage": each stage its own local inverses
+                    inv_s = (factor if kind == "ras" else
+                             BR.build_local_inverses(ctx_ras, A_el, free_pair))
+                    M_s = BR.make_ras_precond(ctx_ras, inv_s, free_pair)
+                res = bicgstab(op, r, torch.zeros_like(r), M_s,
+                               STAGE_REDUCTION, sys.linearSolverIterations)
             levels.append(guess - res.x)
             iters += res.iterations
         return levels[-1], iters
 
     def species_step(uphi_, ucp_, ucm_):
-        """Both species' DIRK stages with a fresh factor (stage inverses
-        or local inverses) where one serves every stage, else with none
-        (the species Krylov path)."""
+        """Both species' DIRK stages with a fresh factor where one serves
+        every stage (the RAS factor on the mid-size tier too, as in the
+        reference), else with none (the species Krylov path)."""
         with span("pnp.species_step") as sp:
-            u_old = torch.stack([ucp_, ucm_])
-            u_el = _drift_u_el(uphi_) if use_fast_dense else None
-            K_pair = _build_K_pair(uphi_, u_el)
-            factor = ras_inv = None
-            if use_dense_species:
-                factor = batched_inv_f32(_species_dense_f32(uphi_, u_el))
-            elif use_ras_factor:
-                ras_inv = _ras_factor(K_pair)
-            out, iters = _species_pair_onestep(K_pair, u_old, factor,
-                                               ras_inv)
+            d = drift(uphi_)
+            out, iters = _stages(d, torch.stack([ucp_, ucm_]), species.name,
+                                 build_factor(d))
             sp.set(iterations=iters)
         return out[0], out[1], iters
 
@@ -635,70 +718,34 @@ def build_pnp_system(
         f32 stage inverses) where they pass the contraction probe, else
         ("ras", the RAS factor) for this refresh window."""
         with span("pnp.species_factor"):
-            if use_dense_species:
-                return batched_inv_f32(_species_dense_f32(uphi_))
-            if use_mid_species:
-                X, ok = inv_f32_probe(_species_dense_f32(uphi_))
+            d = drift(uphi_)
+            if species.mid:
+                X, ok = inv_f32_probe(dense_f32(d))
                 if ok:
                     return ("inv", X)
                 del X
-                return ("ras", _ras_factor(_build_K_pair(uphi_)))
-            return _ras_factor(_build_K_pair(uphi_))
+                return ("ras", build_factor(d))
+            return build_factor(d)
 
     def species_step_reuse(factor, uphi_, ucp_, ucm_):
         """Both species' stages with a possibly stale factor."""
         with span("pnp.species_step") as sp:
-            K_pair = _build_K_pair(uphi_)
-            u_old = torch.stack([ucp_, ucm_])
-            dense_factor = use_dense_species
-            if use_mid_species:
-                kind, factor = factor
-                dense_factor = kind == "inv"
-            if dense_factor:
-                out, iters = _species_pair_onestep(K_pair, u_old, factor)
-            else:
-                out, iters = _species_pair_onestep(K_pair, u_old, None,
-                                                   factor)
+            kind = species.name
+            if species.mid:
+                tag, factor = factor
+                kind = "dense" if tag == "inv" else "ras"
+            out, iters = _stages(drift(uphi_), torch.stack([ucp_, ucm_]),
+                                 kind, factor)
             sp.set(iterations=iters)
         return out[0], out[1], iters
 
-    def _poisson_residual(uphi_, ucp_, ucm_):
-        dm = vt_phi.dofmap
-        r_el = V.poisson_residual_el(uphi_[dm], ucp_[dm], ucm_[dm], vt_phi,
-                                     sys.l_b, sys.cylindrical, pi)
-        return ctx_phi.constrain(FA.scatter_add(r_el, dm, ndof)
-                                 + ctx_phi.flux_vector)
-
     def poisson_solve(uphi_, ucp_, ucm_, phi_pre=None):
-        """SLP apply at tolerance 1e-10 (reference :349-350): the affine
-        form's one matvec (dense), f64-residual refinement with the f32
-        inverse (mid-size; very large: in its scaled form), two-level-RAS
-        BiCGSTAB (above), or the
-        configured Krylov variant on the assembled diagonal."""
+        """SLP apply at tolerance 1e-10 by the tier's own solve."""
         with span("pnp.poisson_solve", tier=poisson_tier) as sp:
-            uphi2, k = _poisson_solve(uphi_, ucp_, ucm_, phi_pre)
+            uphi2, k = solve_phi(uphi_, ucp_, ucm_,
+                                 poisson_pre if phi_pre is None else phi_pre)
             sp.set(iterations=k)
         return uphi2, k
-
-    def _poisson_solve(uphi_, ucp_, ucm_, phi_pre):
-        pre = poisson_pre if phi_pre is None else phi_pre
-        if poisson_tier == "dense":
-            P_phi, q_phi = pre
-            return q_phi + P_phi @ (ucm_ - ucp_), 1
-        r = _poisson_residual(uphi_, ucp_, ucm_)
-        if solve_phi_inv is not None:
-            x, k = solve_phi_inv(pre, r[None], 1e-10)
-            return uphi_ - x[0], k
-        if poisson_tier == "krylov":
-            res = krylov_phi(op_phi, r, torch.zeros_like(r), pre, 1e-10,
-                             A_el=A_phi_el, lam=lam_phi)
-            return uphi_ - res.x, res.iterations
-        inv_p, p1_p = pre
-        M = BR.make_two_level_precond(ctx_ras, inv_p, None, op_phi,
-                                      ctx_phi.free, p1_coarse=p1_p)
-        res = bicgstab(op_phi, r, torch.zeros_like(r), M, 1e-10,
-                       sys.linearSolverIterations, graph=True)
-        return uphi_ - res.x, res.iterations
 
     def fused_step(uphi_, ucp_, ucm_):
         ucp_, ucm_, _ = species_step(uphi_, ucp_, ucm_)
@@ -717,8 +764,7 @@ def build_pnp_system(
 
     # the factor-reuse entry points exist only where one factor serves
     # every stage (None elsewhere, as in the reference)
-    factor_kind = ("dense" if use_dense_species else
-                   "ras" if use_ras_factor else None)
+    factor_kind = species.name if species.name in ("dense", "ras") else None
     has_factor = factor_kind is not None
     return PnpSystem(
         sys=sys, space=space, pb=pb, pb_newton_iterations=pb_iters,
@@ -729,11 +775,12 @@ def build_pnp_system(
                                             sys.n_surfaces, device),
         dt=dt, species_factor=species_factor if has_factor else None,
         species_step_reuse=species_step_reuse if has_factor else None,
-        factor_kind=factor_kind, mid_species=use_mid_species,
+        factor_kind=factor_kind, mid_species=species.mid,
         fused_step_reuse=fused_step_reuse if has_factor else None,
-        species_dense_f32=(_species_dense_f32
-                           if use_dense_species or use_mid_species else None),
-        species_local_f32=_species_local_f32 if use_ras_factor else None,
+        species_dense_f32=(_species_dense_f32 if species.name == "dense"
+                           or species.mid else None),
+        species_local_f32=(_species_local_f32 if species.name == "ras"
+                           else None),
         poisson_tier=poisson_tier, poisson_pre=poisson_pre,
         lam_phi=lam_phi, lam_species=lam_species,
         block_context=ctx_ras, pb_seconds=pb_seconds,
@@ -781,7 +828,6 @@ def run_instationary_pnp_from_pb(
     resume: bool = False,
     flux_convention: str = "reference",
     presolve_potential: bool = False,
-    stage_reduction: float = 1e-5,
     dense_poisson_threshold: int = 8192,
     ras_block_size: int = 256,
     ras_refresh_every: Optional[int] = None,
@@ -808,7 +854,6 @@ def run_instationary_pnp_from_pb(
     n_steps = sys.nSteps if n_steps is None else n_steps
     t_setup = _time.perf_counter()
     system = build_pnp_system(sys, space, tableau, mesh,
-                              stage_reduction=stage_reduction,
                               dense_poisson_threshold=dense_poisson_threshold,
                               ras_block_size=ras_block_size,
                               poisson_inv_threshold=poisson_inv_threshold,
@@ -820,7 +865,7 @@ def run_instationary_pnp_from_pb(
     dt = system.dt
     if presolve_potential:
         uphi, _ = system.poisson_solve(uphi, ucp, ucm)
-    _sync(device)
+    synchronize(device)
     setup_seconds = _time.perf_counter() - t_setup
 
     # ---- Phase D: time loop ---------------------------------------------
@@ -862,15 +907,12 @@ def run_instationary_pnp_from_pb(
                 kp = 0
                 if i % sys.potentialUpdateFreq == 0:
                     uphi, kp = system.poisson_solve(uphi, ucp, ucm)
-                _sync(device)
+                synchronize(device)
                 step_ms.append(1e3 * (_time.perf_counter() - t_step))
                 species_its.append(k)
                 poisson_its.append(kp)
                 rebuilt.append(fresh)
-                # the mid-size species tier tags its factor with its kind
-                kinds.append(ras_factor[0]
-                             if use_ras_reuse and system.mid_species
-                             else system.factor_kind)
+                kinds.append(system.kind_of(ras_factor))
                 time += dt
                 if i % sys.outputFreq == 0:
                     output_counter += 1
