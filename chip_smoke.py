@@ -756,18 +756,22 @@ def gj_checks(torch, K, contraction_ok, dev):
     check(bool(torch.isfinite(X).all()) and resid < 1e-2 and ok
           and err <= GJ_REL_TOL, "gj_inverse permuted case")
 
-    # both kernel variants (0: one block a matrix, 1: the panel path) below
-    # one panel, off the panel grid, and with the first pivots in the last
-    # rows (rows reversed: column 0's pivot is row N - 1, far outside the
-    # first panel's diagonal block); pivot rows equal the plain version's
+    # the kernel variants (0: one block a matrix, 1: the panel path, a
+    # launch a column, 2: a cluster launch a panel) below one panel, off the
+    # panel grid, and with the first pivots in the last rows (rows reversed:
+    # column 0's pivot is row N - 1, far outside the first panel's diagonal
+    # block); pivot rows equal the plain version's
     for name, S, N, variant, panel, flip in (
             ("N < panel", 2, 20, 0, 32, False),
             ("N < panel", 2, 20, 1, 64, False),
+            ("N < panel", 2, 20, 2, 64, False),
             ("N mod panel", 2, 77, 0, 32, False),
             ("N mod panel", 2, 333, 1, 64, False),
             ("N mod panel", 1, 515, 1, 48, False),
+            ("N mod panel", 1, 515, 2, 48, False),
             ("cross-block pivots", 2, 300, 0, 32, True),
-            ("cross-block pivots", 1, 700, 1, 64, True)):
+            ("cross-block pivots", 1, 700, 1, 64, True),
+            ("cross-block pivots", 1, 700, 2, 64, True)):
         rng = np.random.RandomState(N)
         A = (rng.rand(S, N, N).astype(np.float32) * 0.1
              + np.eye(N, dtype=np.float32)[None] * N * 0.05)

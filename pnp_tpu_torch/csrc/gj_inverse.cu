@@ -42,50 +42,75 @@
 // memory rate instead; the panel form makes N / nb passes at nb / 4 flop
 // per byte (nb = 64: 16).
 //
-// Two variants, chosen from N by the caller (kernels.py):
+// Three variants, chosen from N by the caller (kernels.py:gj_variant):
 //
-// * gj_small_kernel (N <= 512): one block of 512 threads per matrix walks
-//   all panels (width <= 32) inside one launch. The panel and the pivot rows
-//   live in shared memory (column-major, so a panel step walks rows with
-//   unit stride); the rank-nb update runs 128 x 128 tiles with an 8 x 4
-//   register block per thread, the M tile fetched before the product and
-//   written after it. A batch of 96 matrices fills 96 of the 132 SMs; the
-//   whole inverse is 3 launches.
+// * gj_small_kernel (variant 0, N <= 512): one block of 512 threads per
+//   matrix walks all panels (width <= 32) inside one launch. The panel and
+//   the pivot rows live in shared memory (column-major, so a panel step
+//   walks rows with unit stride); the rank-nb update runs 128 x 128 tiles
+//   with an 8 x 4 register block per thread, the M tile fetched before the
+//   product and written after it. A batch of 96 matrices fills 96 of the
+//   132 SMs; the whole inverse is 3 launches.
 //
-// * the panel path (any N): the panel lives in a column-major scratch
-//   buffer (nb x Np) in device memory, small enough to stay in L2. One
-//   launch per column does the step on the panel alone, over all 32-row
-//   blocks at once (a block per matrix would be held to one SM's share of
-//   the L2 rate): each warp reduces the per-block pivot candidates the
-//   previous launch left, reads the pivot row's entries it needs, updates
-//   its rows from the source buffer into the other buffer of a pair (so no
-//   block reads a row another block is writing; the row swap is folded
-//   into the reads), and the warp that wrote the next column leaves the
-//   block's candidate for it. No block-wide barrier; a thread's own loads
-//   are in flight before the pivot is known. Then one launch swaps rows
-//   and copies R aside, and one launch does the rank-nb update: 128 x 128
-//   output tiles, 256 threads with an 8 x 8 register block each, G and R
-//   tiles brought into shared memory by cp.async in 16-deep stages that
-//   are waited for one by one, so later stages land while the first are
-//   multiplied; the M tile is prefetched to L2 meanwhile, and two blocks
-//   share an SM so one tile's epilogue overlaps another's product. The
-//   working matrix has a row pitch that is a multiple of 4 floats, so
-//   every M access of the update is a 16-byte one for any N.
-//   N + 3 ceil(N / nb) + 2 launches per inverse.
+// * the panel path (variants 1 and 2): the panel's steps leave G in a
+//   column-major scratch buffer (nb x Np) in device memory; then one launch
+//   swaps rows and copies R aside, and one launch does the rank-nb update:
+//   128 x 128 output tiles, 256 threads with an 8 x 8 register block each,
+//   G and R tiles brought into shared memory by cp.async in 16-deep stages
+//   that are waited for one by one, so later stages land while the first
+//   are multiplied; the M tile is prefetched to L2 meanwhile, and two
+//   blocks share an SM so one tile's epilogue overlaps another's product.
+//   The working matrix has a row pitch that is a multiple of 4 floats, so
+//   every M access of the update is a 16-byte one for any N. The steps:
+//
+//   - variant 2, the cluster panel (N up to 16 x 608 = 9,728): one launch
+//     a panel. A thread block cluster a matrix of C blocks (about 192 rows
+//     a block, at most 16 blocks: a non-portable size above 8) holds the
+//     panel in its threads' registers, a row a thread, and steps all its
+//     columns; blocks exchange each column's candidates and rows by
+//     asynchronous stores into each other's shared memory, counted on
+//     mbarriers, so no launch and no cluster barrier separates two columns
+//     (gj_cluster_panel_kernel). 3 ceil(N / nb) + 2 launches per inverse.
+//
+//   - variant 1, a launch a column (any N): the panel lives in the scratch
+//     buffer, small enough to stay in L2. One launch per column does the
+//     step on the panel alone, over all 32-row blocks at once (a block per
+//     matrix would be held to one SM's share of the L2 rate): each warp
+//     reduces the per-block pivot candidates the previous launch left,
+//     reads the pivot row's entries it needs, updates its rows from the
+//     source buffer into the other buffer of a pair (so no block reads a
+//     row another block is writing; the row swap is folded into the reads),
+//     and the warp that wrote the next column leaves the block's candidate
+//     for it. No block-wide barrier; a thread's own loads are in flight
+//     before the pivot is known. N + 3 ceil(N / nb) + 2 launches per
+//     inverse.
+//
+//   Both variants do the same operations on the same values (the divisions
+//   by the pivot, the fused multiply-adds, the candidates' order), so their
+//   inverses and pivot rows are equal bit for bit.
 //
 // Measured on an H100 (80GB HBM3, 700 W; tools/gj_sweep.py): panels of 64
 // beat 32 and 48 on the panel path ((2, 4801, 4801): 46.9 / 52.7 / 48.4 ms;
 // (1, 12097, 12097): 208.9 ms against 265.0 at 32), and 32 beats 16 in the
 // one-block kernel ((96, 369, 369): 1.78 against 1.93 ms). The update runs
 // at 28-29 TFLOP/s while moving M at ~1.8 TB/s: neither pipe is full, the
-// two phases of a tile overlap only across the two blocks of an SM. The
-// per-column launches (4.7-5.6 us each) are half the time at N = 4801 and
-// a third at N = 12097. Look-ahead was tried and taken out again: with the
-// next panel's steps on a second, high-priority stream beside the rest of
-// this panel's update (the update capped at 112 registers so a step block
-// fits beside two of its blocks) the inverse gained 1 % at N = 4801 and
-// 4 % at N = 12097: both kernels slow down when they share the SMs (a
-// step launch 5.6 -> 9.3 us, an update 636 -> 760 us).
+// two phases of a tile overlap only across the two blocks of an SM. A
+// launch a column costs 4.4-5.6 us of device time; the cluster panel steps
+// a column in 1.5 us at (2, 3105, 3105) (the panel phase 13.6 -> 4.8 ms,
+// the inverse's device time 20.7 -> 11.9 ms), 1.7 us at (2, 4801, 4801)
+// (23.2 -> 8.1 ms, 43.1 -> 28.3 ms) and 1.4 us at (8, 1685, 1685) (9.2 ->
+// 2.4 ms). Of those 1.5 us the update itself (64 fused multiply-adds a
+// thread) is a small part: the column's chain of dependent steps (the
+// block's candidate, the stores across the cluster, the wait, the
+// reductions, the division) sets it; more blocks shorten it until ~192
+// rows a block. A cluster barrier a column instead of the mbarriers cost
+// 0.7 us of it (2.5 us a column). Look-ahead was tried on variant 1 and
+// taken out again: with the next panel's steps on a second,
+// high-priority stream beside the rest of this panel's update (the update
+// capped at 112 registers so a step block fits beside two of its blocks)
+// the inverse gained 1 % at N = 4801 and 4 % at N = 12097: both kernels
+// slow down when they share the SMs (a step launch 5.6 -> 9.3 us, an
+// update 636 -> 760 us).
 //
 // Arithmetic is IEEE f32 on the FMA pipe (fused multiply-add), no tensor
 // cores and no TF32: the refinement loop needs a true-f32 inverse. The
@@ -96,8 +121,8 @@
 // GJ_HOST_EMULATION: compiled as plain C++ against a small header that
 // runs blocks and threads on the host (csrc/emulation/), so the CPU tests
 // can run this file's index arithmetic and synchronisation; launches go
-// through GJ_LAUNCH and dynamic shared memory through GJ_DYN_SMEM for
-// that reason.
+// through GJ_LAUNCH (GJ_LAUNCH_CLUSTER: the blocks of a cluster at once)
+// and dynamic shared memory through GJ_DYN_SMEM for that reason.
 
 #include <cuda_runtime.h>
 #include <cstddef>
@@ -105,10 +130,16 @@
 #ifdef GJ_HOST_EMULATION
 #define GJ_LAUNCH(kernel, grid, block, smem, stream, ...) \
   emulation::launch(grid, block, smem, [&] { kernel(__VA_ARGS__); })
+#define GJ_LAUNCH_CLUSTER(kernel, size, grid, block, smem, stream, ...)   \
+  (emulation::launch_cluster(size, grid, block, smem,                    \
+                             [&] { kernel(__VA_ARGS__); }),              \
+   cudaSuccess)
 #define GJ_DYN_SMEM(name) float4* name = emulation::dynamic_smem()
 #else
 #define GJ_LAUNCH(kernel, grid, block, smem, stream, ...) \
   kernel<<<grid, block, smem, stream>>>(__VA_ARGS__)
+#define GJ_LAUNCH_CLUSTER(kernel, size, grid, block, smem, stream, ...) \
+  launch_cluster(kernel, size, grid, block, smem, stream, __VA_ARGS__)
 #define GJ_DYN_SMEM(name) extern __shared__ float4 name[]
 #endif
 
@@ -125,6 +156,9 @@ constexpr int kStepPerThread = kMaxPanel / kStepGroups;
 constexpr int kSmallPanel = 32;   // widest panel of the one-block variant
 constexpr int kSmallThreads = 512;
 constexpr int kSmallMaxN = 512;
+constexpr int kClusterRows = 608;   // most rows of a cluster block
+constexpr int kMaxCluster = 16;     // largest cluster (above 8: non-portable)
+constexpr int kPlanRows = 192;      // rows a cluster block the plan aims at
 constexpr int kGatherCols = 32;
 constexpr int kGatherRowThreads = 8;
 constexpr int kGatherRows = 64;
@@ -170,6 +204,106 @@ __device__ __forceinline__ void prefetch_l2(const void* gmem) {
 #endif
 }
 
+// ---- thread block clusters -------------------------------------------------
+
+#ifdef GJ_HOST_EMULATION
+inline void cluster_sync() { emulation::cluster_sync(); }
+inline void mbar_init(unsigned long long* m) { emulation::mbar_init(m, 1); }
+inline void mbar_init_fence() {}
+inline void mbar_expect(unsigned long long* m, int bytes) {
+  emulation::mbar_update(m, 1, bytes);
+}
+inline void mbar_wait(unsigned long long* m, unsigned parity) {
+  emulation::mbar_wait(m, parity);
+}
+inline void push16(float* dst, unsigned long long* bar, int rank, float4 v) {
+  *emulation::cluster_map(reinterpret_cast<float4*>(dst), rank) = v;
+  emulation::mbar_update(emulation::cluster_map(bar, rank), 0, -16);
+}
+#else
+// every thread of every block of the cluster arrives (release), then waits
+// (acquire): shared-memory writes before it are seen by the cluster's reads
+// after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive;\n"
+      "barrier.cluster.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+// an mbarrier of one arrival a phase, the arrival carrying the bytes the
+// phase waits for
+__device__ __forceinline__ void mbar_init(unsigned long long* m) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(m))
+               : "memory");
+}
+// the barriers' initialisation, seen by the cluster (before its barrier)
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect(unsigned long long* m, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(m)),
+               "r"(bytes)
+               : "memory");
+}
+// until the phase of parity `parity` completes; what the cluster stored
+// with it is then seen
+__device__ __forceinline__ void mbar_wait(unsigned long long* m,
+                                          unsigned parity) {
+  const unsigned a = smem_u32(m);
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  }
+}
+// 16 bytes to block `rank`'s copy of dst, counted on its copy of bar
+__device__ __forceinline__ void push16(float* dst, unsigned long long* bar,
+                                       int rank, float4 v) {
+  unsigned d, b;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(d)
+               : "r"(smem_u32(dst)), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(b)
+               : "r"(smem_u32(bar)), "r"(rank));
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(d),
+      "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)),
+      "r"(__float_as_uint(v.z)), "r"(__float_as_uint(v.w)), "r"(b)
+      : "memory");
+}
+template <class... Params, class... Args>
+cudaError_t launch_cluster(void (*kernel)(Params...), int size, dim3 grid,
+                           dim3 block, size_t smem, cudaStream_t st,
+                           Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = size;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+#endif
+
 // ---- pivot search -----------------------------------------------------------
 
 // the better of two pivot candidates: larger |value|, then lower row
@@ -186,13 +320,16 @@ __device__ __forceinline__ float candidate(float x) {
   return a > -1.0f ? a : -1.0f;
 }
 
-// Warp-wide best candidate, left in every lane (all 32 lanes call it).
+// Warp-wide best candidate, left in every lane (all 32 lanes call it): the
+// largest |value| as a key (its bits plus one, 0 for none) in one warp
+// reduction, then the lowest row of that key in another; the same choice
+// as `better` over the lanes.
 __device__ __forceinline__ void warp_best(float& v, int& i) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const float v2 = __shfl_xor_sync(0xffffffffu, v, off);
-    const int i2 = __shfl_xor_sync(0xffffffffu, i, off);
-    better(v, i, v2, i2);
-  }
+  const unsigned key = v >= 0.0f ? __float_as_uint(v) + 1u : 0u;
+  const unsigned top = __reduce_max_sync(0xffffffffu, key);
+  i = (int)__reduce_min_sync(0xffffffffu,
+                             key == top ? (unsigned)i : 0xffffffffu);
+  v = top == 0u ? -1.0f : __uint_as_float(top - 1u);
 }
 
 // Block-wide best candidate's row, returned to every thread. s_val/s_idx hold
@@ -480,6 +617,233 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---- the cluster panel (variant 2) ------------------------------------------
+
+// floats a block receives from each block of the cluster a column: its
+// candidate's value and row, two floats of padding, the candidate's 64
+// panel entries
+constexpr int kRecv = 4 + kMaxPanel;
+
+// dynamic shared memory of a cluster block of C blocks and W warps, in
+// floats, all but s_r by column parity: what it receives a column,
+// s_recv[2][C][kRecv] and row k s_recvk[2][64]; each warp's candidate row
+// s_wrows[2][W][64] and row k s_rowk[2][64]; each warp's copy of the
+// column's scaled pivot row s_r[W][64]; the two mbarriers; each warp's
+// candidate (value, row) s_wcand[2][W][2]
+__host__ __device__ inline int cluster_smem_floats(int W, int C) {
+  return 2 * C * kRecv + (3 * W + 4) * kMaxPanel + 4 + 4 * W;
+}
+
+// a thread's panel row to shared memory, 16 bytes at a time
+__device__ __forceinline__ void store_row(float* dst,
+                                          const float (&x)[kMaxPanel]) {
+  float4* d = reinterpret_cast<float4*>(dst);
+#pragma unroll
+  for (int q = 0; q < kMaxPanel / 4; ++q)
+    d[q] = make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]);
+}
+
+// The warp's best candidate for column k (x[0] of rows i >= k): its value
+// and row, and the winning lane's whole panel row; the thread of row k
+// leaves its row in s_rowk.
+__device__ __forceinline__ void publish_candidate(
+    const float (&x)[kMaxPanel], int i, int k, bool live, int N, int warp,
+    int lane, float* s_wrows, float* s_rowk, float* s_wcand) {
+  float v = (live && i >= k) ? candidate(x[0]) : -1.0f;
+  int bi = v >= 0.0f ? i : N;
+  warp_best(v, bi);
+  if (i == bi) store_row(s_wrows + warp * kMaxPanel, x);
+  if (i == k) store_row(s_rowk, x);
+  if (lane == 0) {
+    s_wcand[2 * warp] = v;
+    s_wcand[2 * warp + 1] = __int_as_float(bi);
+  }
+}
+
+// Every warp of the block: the block's best candidate for column k (the
+// best of its warps'), with its row, and row k where this block owns it,
+// stored into every block of the cluster, a 16-byte store a thread.
+__device__ __forceinline__ void push_candidate(
+    int k, int par, int N, int R, int W, int C, int rank, int lane,
+    const float* s_wcand, const float* s_wrows, const float* s_rowk,
+    float* s_recv, float* s_recvk, unsigned long long* mbar) {
+  constexpr int chunks = kRecv / 4, row_chunks = kMaxPanel / 4;
+  float v = lane < W ? s_wcand[2 * lane] : -1.0f;
+  int bi = lane < W ? __float_as_int(s_wcand[2 * lane + 1]) : N;
+  warp_best(v, bi);
+  const float4* row = reinterpret_cast<const float4*>(
+      s_wrows + (bi < N ? (bi - rank * R) >> 5 : 0) * kMaxPanel);
+  const float4* rk = reinterpret_cast<const float4*>(s_rowk);
+  float* mine = s_recv + (par * C + rank) * kRecv;
+  const int n_cand = C * chunks;
+  const int total = n_cand + (k / R == rank ? C * row_chunks : 0);
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    if (e < n_cand) {
+      const int peer = e / chunks, c = e - peer * chunks;
+      push16(mine + 4 * c, &mbar[par], peer,
+             c == 0 ? make_float4(v, __int_as_float(bi), 0.0f, 0.0f)
+                    : row[c - 1]);
+    } else {
+      const int peer = (e - n_cand) / row_chunks;
+      const int c = e - n_cand - peer * row_chunks;
+      push16(s_recvk + par * kMaxPanel + 4 * c, &mbar[par], peer, rk[c]);
+    }
+  }
+}
+
+// The panel step of a whole panel in one launch: one cluster of C =
+// gridDim.x blocks a matrix (blockIdx.y). Block r owns rows [r R, r R + R),
+// R = blockDim.x, one a thread, the row's panel entries in the thread's
+// registers, kept rotated so that every index is known to the compiler: at
+// column kk, x[q] holds M[i, k0 + (kk + q) % 64], so the column's entry is
+// x[0] and the step writes column kk + 1 + q to x[q]. Per column: each warp
+// leaves its pivot candidate (the lowest row >= k with the largest
+// |M[i, k]|, as the column path reduces them) with that row, and row k's
+// thread leaves row k; after a block barrier the warps store the block's
+// best, with its row (and row k, from its owner), into every block of the
+// cluster by asynchronous stores that count their bytes on the receiver's
+// mbarrier. No cluster barrier: each warp waits for its block's mbarrier,
+// agrees with the others on p (whole column NaN: k), scales the pivot row
+// into its own copy, and steps its rows, the swap folded in as in the
+// column path, with the same operations on the same values, so G and the
+// pivot rows equal that path's bit for bit. A block stores column kk + 2
+// into a peer only after that peer's column kk + 1, so two receive buffers
+// and two mbarriers, by column parity, suffice. At the end G goes to Gbuf
+// (nb x Np, column-major).
+__global__ void __launch_bounds__(kClusterRows, 1)
+    gj_cluster_panel_kernel(const float* __restrict__ work,
+                            float* __restrict__ Gbuf, int* __restrict__ perm,
+                            int N, int ld, int Np, int B, int k0, int nb) {
+  GJ_DYN_SMEM(smem4);
+  const int R = blockDim.x, W = R >> 5;
+  const int C = gridDim.x, rank = blockIdx.x;
+  float* s_recv = reinterpret_cast<float*>(smem4);
+  float* s_recvk = s_recv + 2 * C * kRecv;
+  float* s_wrows = s_recvk + 2 * kMaxPanel;
+  float* s_rowk = s_wrows + 2 * W * kMaxPanel;
+  float* s_r = s_rowk + 2 * kMaxPanel;
+  unsigned long long* mbar =
+      reinterpret_cast<unsigned long long*>(s_r + W * kMaxPanel);
+  float* s_wcand = s_r + W * kMaxPanel + 4;
+  // the warps' candidates of parity par: s_wcand + 2 W par, s_wrows +
+  // 64 W par, s_rowk + 64 par
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* s_rw = s_r + warp * kMaxPanel;   // this warp's scaled pivot row
+
+  const float* M = work + (size_t)blockIdx.y * N * ld;
+  float* G = Gbuf + (size_t)blockIdx.y * B * Np;
+  const int i = rank * R + tid;
+  const bool live = i < N;
+  float x[kMaxPanel];
+#pragma unroll
+  for (int q = 0; q < kMaxPanel / 4; ++q) {
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    // k0 and ld are multiples of 4: a group that starts in the panel ends
+    // inside the row
+    if (live && 4 * q < nb)
+      v = *reinterpret_cast<const float4*>(&M[(size_t)i * ld + k0 + 4 * q]);
+    x[4 * q] = v.x;
+    x[4 * q + 1] = 4 * q + 1 < nb ? v.y : 0.0f;
+    x[4 * q + 2] = 4 * q + 2 < nb ? v.z : 0.0f;
+    x[4 * q + 3] = 4 * q + 3 < nb ? v.w : 0.0f;
+  }
+  publish_candidate(x, i, k0, live, N, warp, lane, s_wrows, s_rowk,
+                    s_wcand);
+  if (tid == 0) {
+    mbar_init(&mbar[0]);
+    mbar_init(&mbar[1]);
+    mbar_init_fence();
+  }
+  cluster_sync();   // the barriers exist; the first candidates are written
+
+  for (int kk = 0; kk < nb; ++kk) {
+    const int k = k0 + kk, par = kk & 1;
+    if (tid == 0)
+      mbar_expect(&mbar[par], 16 * (C * kRecv / 4 + kMaxPanel / 4));
+    push_candidate(k, par, N, R, W, C, rank, lane, s_wcand + 2 * W * par,
+                   s_wrows + W * kMaxPanel * par, s_rowk + kMaxPanel * par,
+                   s_recv, s_recvk, mbar);
+    mbar_wait(&mbar[par], (kk >> 1) & 1);
+
+    // the cluster's best: p; this warp's copy of the scaled pivot row,
+    // s_rw[q] = its column kk + 1 + q (1 / piv at q = 63)
+    const float* got = s_recv + par * C * kRecv;
+    float best = lane < C ? got[lane * kRecv] : -1.0f;
+    int p = lane < C ? __float_as_int(got[lane * kRecv + 1]) : N;
+    warp_best(best, p);
+    if (p >= N) p = k;  // whole column NaN: keep the diagonal
+    const float* row_k = s_recvk + par * kMaxPanel;
+    const float* row_p = p == k ? row_k : got + (p / R) * kRecv + 4;
+    const float piv = row_p[0];
+    const float a = row_p[lane + 1];
+    const float b = lane < 31 ? row_p[lane + 33] : 1.0f;
+    s_rw[lane] = __fdiv_rn(a, piv);
+    s_rw[lane + 32] = __fdiv_rn(b, piv);
+    if (tid == 0 && rank == 0) perm[(size_t)blockIdx.y * N + k] = p;
+    __syncwarp();
+
+    // s_rw is read 16 bytes at a time, next to the products that use it
+    const float4* r4 = reinterpret_cast<const float4*>(s_rw);
+    if (i == k) {
+      // row k becomes the scaled pivot row
+#pragma unroll
+      for (int q = 0; q < kMaxPanel / 4; ++q) {
+        const float4 r = r4[q];
+        x[4 * q] = r.x;
+        x[4 * q + 1] = r.y;
+        x[4 * q + 2] = r.z;
+        x[4 * q + 3] = r.w;
+      }
+    } else if (i == p) {
+      // row p is stepped from what row k held
+      const float c = row_k[0];
+#pragma unroll
+      for (int q = 0; q < kMaxPanel / 4; ++q) {
+        const float4 r = r4[q];
+        const float rq[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const int j = 4 * q + h;
+          x[j] = fmaf(-c, rq[h], j < kMaxPanel - 1 ? row_k[j + 1] : 0.0f);
+        }
+      }
+    } else {
+      // x[j + 1] is read before it is written: in place
+      const float c = x[0];
+#pragma unroll
+      for (int q = 0; q < kMaxPanel / 4; ++q) {
+        const float4 r = r4[q];
+        const float rq[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const int j = 4 * q + h;
+          x[j] = fmaf(-c, rq[h], j < kMaxPanel - 1 ? x[j + 1] : 0.0f);
+        }
+      }
+    }
+    if (kk + 1 < nb) {
+      // the other parity's slots: a slower warp may still be storing this
+      // column's from its own; they are free again after this barrier
+      const int q = par ^ 1;
+      publish_candidate(x, i, k + 1, live, N, warp, lane,
+                        s_wrows + W * kMaxPanel * q, s_rowk + kMaxPanel * q,
+                        s_wcand + 2 * W * q);
+      __syncthreads();
+    }
+  }
+  // no block leaves while a store to it may be on its way
+  cluster_sync();
+
+  // x[q] holds column (nb + q) % 64
+  if (live) {
+#pragma unroll
+    for (int q = 0; q < kMaxPanel; ++q) {
+      const int j = (nb + q) & (kMaxPanel - 1);
+      if (j < nb) G[(size_t)j * Np + i] = x[q];
+    }
+  }
+}
+
 // The panel's row swaps on the other columns of M, one thread per column,
 // then the pivot rows copied aside: R[kk, j] = M[k0 + kk, j].
 __global__ void __launch_bounds__(kThreads)
@@ -670,27 +1034,46 @@ __global__ void gj_gather_kernel(const float* __restrict__ W,
 }
 
 struct Plan {
-  bool small;
+  int variant;
   int B, ld, Np, nrb, nsb;   // nrb update row tiles, nsb panel-step blocks
+  int C, R;                  // variant 2: blocks a cluster, rows a block
 };
 
-Plan make_plan(int N, int panel, int variant) {
+// rows a block of a cluster of C blocks owns: whole warps
+__host__ __device__ inline int cluster_rows(int N, int C) {
+  return round_up((N + C - 1) / C, 32);
+}
+
+// The cluster the plan takes for order N: about kPlanRows rows a block, at
+// most kMaxCluster blocks; 0 where those blocks cannot hold their rows.
+int cluster_size(int N) {
+  const int C = min(kMaxCluster, (N + kPlanRows - 1) / kPlanRows);
+  return cluster_rows(N, C) <= kClusterRows ? C : 0;
+}
+
+Plan make_plan(int N, int panel, int variant, int cluster) {
   Plan pl;
-  pl.small = variant == 0;
+  pl.variant = variant;
   pl.B = panel;
   pl.ld = round_up(N, 4);
   pl.Np = round_up(N, kTile);
   pl.nrb = pl.Np / kTile;
   pl.nsb = (N + kStepRows - 1) / kStepRows;
+  pl.C = variant == 2 ? (cluster > 0 ? cluster : cluster_size(N)) : 0;
+  pl.R = pl.C > 0 ? cluster_rows(N, pl.C) : 0;
   return pl;
 }
 
-bool plan_ok(const Plan& pl, int S, int N, int variant) {
+bool plan_ok(const Plan& pl, int S, int N) {
   if (S <= 0 || N <= 0 || S > 65535 || pl.nsb > 65535) return false;
-  if (variant != 0 && variant != 1) return false;
-  if (pl.small) return N <= kSmallMaxN && pl.B >= 1 && pl.B <= kSmallPanel;
+  if (pl.variant == 0)
+    return N <= kSmallMaxN && pl.B >= 1 && pl.B <= kSmallPanel;
+  if (pl.variant == 2 &&
+      !(pl.C >= 1 && pl.C <= kMaxCluster && pl.R <= kClusterRows))
+    return false;
   // panels start on multiples of 4 (16-byte groups of the update's epilogue)
-  return pl.B >= 4 && pl.B <= kMaxPanel && pl.B % 4 == 0;
+  return (pl.variant == 1 || pl.variant == 2) && pl.B >= 4 &&
+         pl.B <= kMaxPanel && pl.B % 4 == 0;
 }
 
 }  // namespace
@@ -698,38 +1081,48 @@ bool plan_ok(const Plan& pl, int S, int N, int variant) {
 // Row pitch, in floats, of the working matrix for order N.
 extern "C" int gj_work_pitch(int N) { return round_up(N, 4); }
 
-// Scratch the caller allocates for an (S, N, N) batch: floats (panel buffer
-// pair, pivot rows, pivot candidates) and ints (candidates' rows, perm, g).
-// variant: 0 the one-block kernel (N <= 512, panel <= 32), 1 the panel path
-// (panel a multiple of 4, <= 64). 0 where there is no such kernel.
-extern "C" long long gj_scratch_floats(int S, int N, int panel, int variant) {
-  const Plan pl = make_plan(N, panel, variant);
-  if (!plan_ok(pl, S, N, variant)) return 0;
-  if (pl.small) return 4;
+// Blocks a cluster that variant 2's plan takes for order N; 0 for none.
+extern "C" int gj_plan_cluster(int N) { return cluster_size(N); }
+
+// Scratch the caller allocates for an (S, N, N) batch: floats (the panel,
+// twice for variant 1, the pivot rows, variant 1's pivot candidates) and
+// ints (perm, g, variant 1's candidates' rows). variant: 0 the one-block
+// kernel (N <= 512, panel <= 32), 1 the panel path, a launch a column, 2 the
+// panel path, a cluster launch a panel (both: panel a multiple of 4,
+// <= 64). cluster: variant 2's blocks a cluster, 0 for the plan's own. 0
+// where there is no such kernel.
+extern "C" long long gj_scratch_floats(int S, int N, int panel, int variant,
+                                       int cluster) {
+  const Plan pl = make_plan(N, panel, variant, cluster);
+  if (!plan_ok(pl, S, N)) return 0;
+  if (pl.variant == 0) return 4;
+  if (pl.variant == 2) return (long long)S * 2LL * pl.B * pl.Np;
   return (long long)S * (3LL * pl.B * pl.Np + 2LL * pl.nsb);
 }
 
-extern "C" long long gj_scratch_ints(int S, int N, int panel, int variant) {
-  const Plan pl = make_plan(N, panel, variant);
-  if (!plan_ok(pl, S, N, variant)) return 0;
-  return (long long)S * (2LL * N + (pl.small ? 0 : 2LL * pl.nsb));
+extern "C" long long gj_scratch_ints(int S, int N, int panel, int variant,
+                                     int cluster) {
+  const Plan pl = make_plan(N, panel, variant, cluster);
+  if (!plan_ok(pl, S, N)) return 0;
+  return (long long)S * (2LL * N + (pl.variant == 1 ? 2LL * pl.nsb : 0));
 }
 
 // work: (S, N, ld) input with ld = gj_work_pitch(N), overwritten with
 // inv(P A); out: (S, N, N) inverse; fscratch, iscratch: as sized above, for
-// the same panel and variant. Returns the first CUDA error, 0 on success.
+// the same panel, variant and cluster. Returns the first CUDA error, 0 on
+// success.
 extern "C" int gj_inverse_f32(float* work, float* out, float* fscratch,
                               int* iscratch, int S, int N, int panel,
-                              int variant, void* stream) {
+                              int variant, int cluster, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Plan pl = make_plan(N, panel, variant);
-  if (!plan_ok(pl, S, N, variant)) return (int)cudaErrorInvalidValue;
+  const Plan pl = make_plan(N, panel, variant, cluster);
+  if (!plan_ok(pl, S, N)) return (int)cudaErrorInvalidValue;
   const int B = pl.B, ld = pl.ld, Np = pl.Np, nrb = pl.nrb, nsb = pl.nsb;
   int* perm = iscratch;
   int* g = perm + (size_t)S * N;
   cudaError_t e;
 
-  if (pl.small) {
+  if (pl.variant == 0) {
     const size_t bytes = small_smem_bytes(N);
     e = cudaFuncSetAttribute(gj_small_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -738,33 +1131,51 @@ extern "C" int gj_inverse_f32(float* work, float* out, float* fscratch,
     GJ_LAUNCH(gj_small_kernel, dim3(S), dim3(kSmallThreads), bytes, st, work,
               perm, N, ld, B);
   } else {
-    float* P[2] = {fscratch, fscratch + (size_t)S * B * Np};
-    float* Rbuf = fscratch + 2 * (size_t)S * B * Np;
-    float* cval[2] = {Rbuf + (size_t)S * B * Np,
-                      Rbuf + (size_t)S * B * Np + (size_t)S * nsb};
-    int* cidx[2] = {g + (size_t)S * N, g + (size_t)S * N + (size_t)S * nsb};
+    // variant 1: the panel buffer pair P[0], P[1], the pivot rows and the
+    // candidates; variant 2: G in P[0], the pivot rows
+    const size_t panel_floats = (size_t)S * B * Np;
+    float* P[2] = {fscratch, fscratch + panel_floats};
+    float* Rbuf = pl.variant == 2 ? P[1] : fscratch + 2 * panel_floats;
     const size_t stage_bytes = sizeof(float) * 2 * kStage * kTile;
     e = cudaFuncSetAttribute(gj_rank_update_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)(kMaxStages * stage_bytes));
     if (e != cudaSuccess) return (int)e;
+    if (pl.C > 8) {
+      e = cudaFuncSetAttribute(gj_cluster_panel_kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+      if (e != cudaSuccess) return (int)e;
+    }
+    const size_t cluster_bytes =
+        sizeof(float) * cluster_smem_floats(pl.R / 32, pl.C);
     const dim3 rows(nsb, S);
     for (int k0 = 0; k0 < N; k0 += B) {
       const int nb = min(B, N - k0);
-      GJ_LAUNCH(gj_panel_load_kernel, rows, dim3(kThreads), 0, st, work, P[0],
-                cval[0], cidx[0], N, ld, Np, B, k0, nb);
-      for (int kk = 0; kk < nb; ++kk) {
-        const int a = kk & 1, b = a ^ 1;
-        GJ_LAUNCH(gj_panel_step_kernel, rows, dim3(kThreads), 0, st, P[a], P[b],
-                  cval[a], cidx[a], cval[b], cidx[b], perm, N, Np, B, k0 + kk,
-                  kk, nb);
+      if (pl.variant == 2) {
+        e = GJ_LAUNCH_CLUSTER(gj_cluster_panel_kernel, pl.C, dim3(pl.C, S),
+                              dim3(pl.R), cluster_bytes, st, work, P[0], perm,
+                              N, ld, Np, B, k0, nb);
+        if (e != cudaSuccess) return (int)e;
+      } else {
+        float* cval[2] = {Rbuf + panel_floats,
+                          Rbuf + panel_floats + (size_t)S * nsb};
+        int* cidx[2] = {g + (size_t)S * N, g + (size_t)S * N + (size_t)S * nsb};
+        GJ_LAUNCH(gj_panel_load_kernel, rows, dim3(kThreads), 0, st, work,
+                  P[0], cval[0], cidx[0], N, ld, Np, B, k0, nb);
+        for (int kk = 0; kk < nb; ++kk) {
+          const int a = kk & 1, b = a ^ 1;
+          GJ_LAUNCH(gj_panel_step_kernel, rows, dim3(kThreads), 0, st, P[a],
+                    P[b], cval[a], cidx[a], cval[b], cidx[b], perm, N, Np, B,
+                    k0 + kk, kk, nb);
+        }
       }
       GJ_LAUNCH(gj_swap_extract_kernel, dim3((ld + kThreads - 1) / kThreads, S),
                 dim3(kThreads), 0, st, work, Rbuf, perm, N, ld, Np, B, k0, nb);
       const int stages = (nb + kStage - 1) / kStage;
       GJ_LAUNCH(gj_rank_update_kernel, dim3((ld + kTile - 1) / kTile, nrb, S),
-                dim3(kThreads), stages * stage_bytes, st, work, P[nb & 1], Rbuf,
-                N, ld, Np, B, k0, nb);
+                dim3(kThreads), stages * stage_bytes, st, work,
+                P[pl.variant == 2 ? 0 : nb & 1], Rbuf, N, ld, Np, B, k0, nb);
       e = cudaGetLastError();
       if (e != cudaSuccess) return (int)e;
     }

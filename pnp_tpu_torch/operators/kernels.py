@@ -9,10 +9,13 @@ kernels there become CUDA C++ kernels in ``pnp_tpu_torch/csrc/``:
   remaining column. Per panel of columns: the in-place steps on the panel
   alone, the panel's row swaps on all other columns, then one rank-panel
   product on them, so the working set is passed over N / panel times
-  instead of N. Two kernel variants, chosen from N here: one block a
-  matrix with 32-wide panels in shared memory up to N = 512 (the block-RAS
-  local batches), and above it a panel path with 64-wide panels (the
-  dense stage batch, the mid-size Poisson matrix). Its bound on an H100
+  instead of N. Three kernel variants, chosen from N here
+  (:func:`gj_variant`): one block a matrix with 32-wide panels in shared
+  memory up to N = 512 (the block-RAS local batches), and above it a
+  panel path with 64-wide panels whose steps take one launch a panel on a
+  thread block cluster where the cluster holds the panel (the dense stage
+  batch, the Schwarz batches) and one launch a column above that (the
+  mid-size Poisson matrix, the very-large set-up). Its bound on an H100
   is the 2 N^3 f32 flop a matrix on the FMA pipe; the source's header
   note has the design and its measured times. The plain version is the
   same algorithm in torch ops, with the panel width as an argument;
@@ -44,8 +47,9 @@ launches the kernel or raises. There is no fallback from one to the
 other. Each wrapper adds one to ``launches[name]`` where it launches its
 kernel, and nowhere else (a call captured into a CUDA graph by
 ``solvers.krylov`` is counted at each replay instead), and opens a ``kernels.<name>`` span
-(``utils.profiling``) with the batch ``b`` and the order ``n`` (kernel 3:
-the systems ``s``, the elements ``e`` and ``n``). Kernel 3's routing sits
+(``utils.profiling``) with the batch ``b`` and the order ``n`` (kernel 1
+also its ``path``, counted in ``gj_paths``; kernel 3: the systems ``s``,
+the elements ``e`` and ``n``). Kernel 3's routing sits
 in ``fem/assembly.py``, whose torch ops are its plain version.
 """
 
@@ -73,13 +77,16 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 launches = {"gj_inverse": 0, "pb_residual_jacobian": 0, "element_spmv": 0}
+#: kernel 1's launched calls by path (its variants 0, 2 and 1)
+gj_paths = {"one_block": 0, "cluster_panel": 0, "column_panel": 0}
 
 _lib = None
 
 
 def reset_launch_counts() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, gj_paths):
+        for name in counts:
+            counts[name] = 0
 
 
 def _nvcc() -> str:
@@ -149,12 +156,13 @@ def build(defines=()) -> dict:
 def _bind_gj(lib):
     """Argument types of ``csrc/gj_inverse.cu``'s C interface."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gj_inverse_f32.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.gj_inverse_f32.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.gj_inverse_f32.restype = i
-    lib.gj_work_pitch.argtypes = [i]
-    lib.gj_work_pitch.restype = i
+    for fn in (lib.gj_work_pitch, lib.gj_plan_cluster):
+        fn.argtypes = [i]
+        fn.restype = i
     for fn in (lib.gj_scratch_floats, lib.gj_scratch_ints):
-        fn.argtypes = [i, i, i, i]
+        fn.argtypes = [i, i, i, i, i]
         fn.restype = ctypes.c_longlong
     return lib
 
@@ -226,11 +234,23 @@ def _check_square_f32(A) -> None:
 SMALL_N_MAX = 512
 SMALL_PANEL = 32
 PANEL = 64
+#: kernel 1's paths by variant number
+GJ_PATH_NAMES = {0: "one_block", 1: "column_panel", 2: "cluster_panel"}
 
 
 def panel_width(N: int) -> int:
     """The panel width both versions use for order N."""
     return SMALL_PANEL if N <= SMALL_N_MAX else PANEL
+
+
+def gj_variant(lib, S: int, N: int) -> int:
+    """The kernel variant ``lib`` (kernel 1's library) takes for an (S, N, N)
+    batch: 0, one block a matrix, up to SMALL_N_MAX; above it 2, a panel a
+    cluster launch, where the plan finds a cluster whose blocks hold the
+    panel's rows in registers, else 1, a launch a column."""
+    if N <= SMALL_N_MAX:
+        return 0
+    return 2 if lib.gj_scratch_floats(S, N, PANEL, 2, 0) > 0 else 1
 
 
 def _gj_core_plain(W, panel=None):
@@ -283,24 +303,25 @@ def _gj_core_plain(W, panel=None):
     return torch.gather(W, 2, g[:, None, :].expand(S, N, N)), perm
 
 
-def _gj_core_cuda(W, panel=None, variant=None):
-    """Launch ``csrc/gj_inverse.cu``: variant 0, the one-block kernel, up
-    to SMALL_N_MAX, else variant 1, the panel path, with
-    ``panel_width(N)``. ``panel`` and ``variant`` override that choice for
-    the card-side checks and tuning; callers leave them alone. Returns the
-    inverse and the pivot rows, (S, N) int32."""
+def _gj_core_cuda(W, panel=None, variant=None, cluster=None):
+    """Launch ``csrc/gj_inverse.cu``: the variant :func:`gj_variant`
+    picks, with ``panel_width(N)``. ``panel``, ``variant`` and ``cluster``
+    (variant 2's blocks a cluster; None: the plan's) override that choice
+    for the card-side checks and tuning; callers leave them alone. Returns
+    the inverse and the pivot rows, (S, N) int32."""
     if not W.is_cuda:
         raise ValueError("gj_inverse kernel needs a CUDA tensor")
     lib = _library()
     S, N, _ = W.shape
     if variant is None:
-        variant = 0 if N <= SMALL_N_MAX else 1
+        variant = gj_variant(lib, S, N)
     B = panel_width(N) if panel is None else panel
-    n_f32 = lib.gj_scratch_floats(S, N, B, variant)
-    n_i32 = lib.gj_scratch_ints(S, N, B, variant)
+    C = cluster or 0
+    n_f32 = lib.gj_scratch_floats(S, N, B, variant, C)
+    n_i32 = lib.gj_scratch_ints(S, N, B, variant, C)
     if n_f32 <= 0 or n_i32 <= 0:
         raise ValueError(f"gj_inverse: no kernel for S={S}, N={N}, "
-                         f"panel={B}, variant={variant}")
+                         f"panel={B}, variant={variant}, cluster={C}")
     ld = lib.gj_work_pitch(N)
     # the working copy, rows pitched to a multiple of 4 floats
     work = torch.empty((S, N, ld), dtype=torch.float32, device=W.device)
@@ -314,9 +335,10 @@ def _gj_core_cuda(W, panel=None, variant=None):
         stream = torch.cuda.current_stream(W.device).cuda_stream
         err = lib.gj_inverse_f32(work.data_ptr(), out.data_ptr(),
                                  fscratch.data_ptr(), iscratch.data_ptr(),
-                                 S, N, B, variant, stream)
+                                 S, N, B, variant, C, stream)
     _check(err, "gj_inverse")
     launches["gj_inverse"] += 1
+    gj_paths[GJ_PATH_NAMES[variant]] += 1
     return out, iscratch[:S * N].view(S, N)
 
 
@@ -336,11 +358,19 @@ def gj_inverse(A, equilibrate: bool = True):
     """Explicit inverses of a batch of f32 matrices: (S, N, N) -> (S, N, N).
 
     CUDA tensors launch ``csrc/gj_inverse.cu`` (the one-block kernel up to
-    N = 512, the panel path above); CPU tensors take
-    :func:`gj_inverse_plain`. Any N, S up to 65,535."""
+    N = 512, the panel path above: a cluster launch a panel where a
+    cluster holds the panel, else a launch a column); CPU tensors take
+    :func:`gj_inverse_plain`. Any N, S up to 65,535. The span names the
+    path (``GJ_PATH_NAMES``, or ``plain``)."""
     _check_square_f32(A)
-    core = _gj_core_plain if _route(A) == "cpu" else _gj_core_cuda
-    with span("kernels.gj_inverse", b=A.shape[0], n=A.shape[-1]):
+    S, N = A.shape[0], A.shape[-1]
+    if _route(A) == "cpu":
+        core, path = _gj_core_plain, "plain"
+    else:
+        variant = gj_variant(_library(), S, N)
+        core = lambda W: _gj_core_cuda(W, variant=variant)
+        path = GJ_PATH_NAMES[variant]
+    with span("kernels.gj_inverse", b=S, n=N, path=path):
         return _equilibrated(core, A, equilibrate)
 
 

@@ -10,10 +10,15 @@ version's column loop is slow), the contraction probe, the kernel's time
 (CUDA events; the wrapper's copies and allocations included) and the time
 of ``torch.linalg.inv`` on the same tensor. Matrices are seeded: "dominant"
 needs no row swap, "permuted" swaps rows at nearly every column (the
-costliest case for the swap pass). ``--quick`` builds, prints the
-compiler's register report and runs the small cases only. Exits non-zero
-on any failed check. ``--profile`` adds the device time by kernel name of
-one call at the main path's three shapes (``torch.profiler``).
+costliest case for the swap pass). Variant 2 (the cluster panel) is run
+at every cluster size its plan takes, checked against variant 1 bit for
+bit, and timed with its panel phase alone (the device time of the panel
+kernels in one profiled call, ``torch.profiler``) beside variant 1's, at
+the panel path's shapes (2, 3105), (2, 4801), (8, 1685) and (1, 12097).
+``--quick`` builds, prints the compiler's register report and runs the
+small cases only (``--quick --clusters``: and the cluster sizes). Exits
+non-zero on any failed check. ``--profile`` adds the device time by
+kernel name of one call at the main path's three shapes.
 """
 
 from __future__ import annotations
@@ -51,9 +56,25 @@ def ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def case(kind, S, N, variant, panel, dev, reps=3) -> bool:
+def device_ms(fn) -> dict:
+    """Device time by kernel name of one call of ``fn``, ms."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def case(kind, S, N, variant, panel, dev, reps=3, cluster=None,
+         library=True) -> bool:
     A = matrix(kind, S, N, dev)
-    X, perm = K._gj_core_cuda(A, panel, variant)
+    call = lambda: K._gj_core_cuda(A, panel, variant, cluster)
+    X, perm = call()
     torch.cuda.synchronize()
     ok = contraction_ok(A, X)
     note = ""
@@ -63,15 +84,38 @@ def case(kind, S, N, variant, panel, dev, reps=3) -> bool:
         same = bool((perm.long() == perm_p).all())
         ok = ok and rel <= REL_TOL and same
         note = f" rel err vs plain {rel:.2e}, pivots equal {same};"
-    t = ms(lambda: K._gj_core_cuda(A, panel, variant), reps)
-    t_lib = ms(lambda: torch.linalg.inv(A), reps)
-    lib_rel = float((X - torch.linalg.inv(A)).abs().max() / X.abs().max())
+    if variant == 2:
+        X1, perm_1 = K._gj_core_cuda(A, panel, 1)
+        same = bool(torch.equal(X, X1) and torch.equal(perm, perm_1))
+        ok = ok and same
+        note += f" equal to variant 1 {same};"
+    t = ms(call, reps)
     flop = 2.0 * S * N ** 3
-    print(f"{kind:9s} ({S}, {N}, {N}) variant {variant} panel {panel}:"
-          f"{note} probe {'ok' if ok else 'FAILED'}; kernel {t:.3f} ms "
-          f"({flop / t / 1e9:.2f} TFLOP/s), torch.linalg.inv {t_lib:.3f} ms, "
-          f"rel diff {lib_rel:.2e}", flush=True)
+    line = (f"{kind:9s} ({S}, {N}, {N}) variant {variant} panel {panel}"
+            f"{'' if variant != 2 else f' cluster {cluster or 0}'}:"
+            f"{note} probe {'ok' if ok else 'FAILED'}; kernel {t:.3f} ms "
+            f"({flop / t / 1e9:.2f} TFLOP/s)")
+    if N > 1000:
+        by_name = device_ms(call)
+        panel_ms = sum(v for k, v in by_name.items() if "panel" in k)
+        cols = N if variant == 1 else -(-N // panel)
+        line += (f", device {sum(by_name.values()):.3f} ms, panel phase "
+                 f"{panel_ms:.3f} ms ({1e3 * panel_ms / N:.3f} us a column,"
+                 f" {cols} panel launches)")
+    if library:
+        t_lib = ms(lambda: torch.linalg.inv(A), reps)
+        lib_rel = float((X - torch.linalg.inv(A)).abs().max()
+                        / X.abs().max())
+        line += f", torch.linalg.inv {t_lib:.3f} ms, rel diff {lib_rel:.2e}"
+    print(line, flush=True)
     return ok
+
+
+def cluster_sizes(S: int, N: int, panel: int) -> list:
+    """Every cluster size variant 2's plan takes at this shape."""
+    lib = K._library()
+    return [c for c in range(1, 17)
+            if lib.gj_scratch_floats(S, N, panel, 2, c) > 0]
 
 
 def profile(kind, S, N, dev) -> None:
@@ -113,7 +157,9 @@ def main() -> int:
              ("permuted", 2, 300, 0, 32), ("permuted", 2, 300, 1, 64),
              ("dominant", 2, 300, 1, 32), ("permuted", 3, 369, 0, 32),
              ("permuted", 1, 1000, 1, 64), ("permuted", 1, 1000, 1, 32),
-             ("permuted", 1, 515, 1, 48)]
+             ("permuted", 1, 515, 1, 48), ("dominant", 1, 20, 2, 64),
+             ("permuted", 2, 300, 2, 64), ("permuted", 1, 1000, 2, 64),
+             ("permuted", 1, 515, 2, 48)]
     if "--quick" not in sys.argv:
         cases += [(kind, S, N, v, p)
                   for kind in ("dominant", "permuted")
@@ -126,6 +172,17 @@ def main() -> int:
     good = True
     for c in cases:
         good = case(*c, dev) and good
+    if "--quick" not in sys.argv or "--clusters" in sys.argv:
+        # the cluster panel at every size its plan takes, beside variant 1
+        for S, N in ((2, 3105), (2, 4801), (8, 1685), (1, 12097)):
+            good = case("permuted", S, N, 1, 64, dev, library=False) and good
+            sizes = cluster_sizes(S, N, 64)
+            print(f"({S}, {N}, {N}): cluster sizes {sizes}, the plan's "
+                  f"{K._library().gj_plan_cluster(N)}, the wrapper's variant "
+                  f"{K.gj_variant(K._library(), S, N)}", flush=True)
+            for c in sizes:
+                good = case("permuted", S, N, 2, 64, dev, cluster=c,
+                            library=False) and good
     if "--profile" in sys.argv:
         for kind in ("dominant", "permuted"):
             for S, N in ((96, 369), (2, 4801), (1, 12097)):

@@ -80,12 +80,16 @@ def test_gj_kernel_matches_plain(cuda, case):
     (2, 20, 32, 0, False), (2, 20, 64, 1, False),      # N below one panel
     (3, 333, 32, 0, False), (1, 515, 48, 1, False),    # ragged last panel
     (2, 300, 32, 0, True), (1, 700, 64, 1, True),      # cross-block pivots
+    (1, 515, 48, 2, False), (1, 700, 64, 2, True),
+    (2, 3105, 64, 2, False),                           # the dense stage batch
 ])
 def test_gj_kernel_variants_pivot_like_plain(cuda, S, N, panel, variant,
                                              reverse):
-    """Each kernel variant (0: one block a matrix, 1: the panel path) picks
+    """Each kernel variant (0: one block a matrix, 1: the panel path, a
+    launch a column, 2: the panel path, a cluster launch a panel) picks
     the plain version's pivot rows and agrees with it within GJ_REL_TOL;
-    with the rows reversed every early pivot comes from the last rows."""
+    with the rows reversed every early pivot comes from the last rows.
+    Variant 2 gives variant 1's inverse and pivot rows bit for bit."""
     A = well_conditioned(S, N)
     A = torch.tensor(A[:, ::-1].copy() if reverse else A, device=cuda)
     X, pivots = K._gj_core_cuda(A, panel, variant)
@@ -95,6 +99,54 @@ def test_gj_kernel_variants_pivot_like_plain(cuda, S, N, panel, variant,
     torch.testing.assert_close(X, Xp, rtol=0,
                                atol=GJ_REL_TOL * float(Xp.abs().max()))
     assert contraction_ok(A, X)
+    if variant == 2:
+        X1, pivots_1 = K._gj_core_cuda(A, panel, 1)
+        assert torch.equal(X, X1) and torch.equal(pivots, pivots_1)
+
+
+@pytest.mark.parametrize("S,N", [(2, 3105), (8, 1685)])
+def test_gj_cluster_panel_equals_column_panel(cuda, S, N):
+    """At the dense stage batch of the L0 cell and the Schwarz batch, on
+    the equilibrated matrices the wrapper hands its core: the cluster
+    panel (the plan's cluster) and the per-column launches give the same
+    inverse and pivot rows, bit for bit; the first has the wrapper's
+    path."""
+    A = torch.tensor(well_conditioned(S, N), device=cuda)
+    s = torch.rsqrt(torch.diagonal(A, dim1=1, dim2=2).abs())
+    W = A * s[:, :, None] * s[:, None, :]
+    assert K.gj_variant(K._library(), S, N) == 2
+    X2, p2 = K._gj_core_cuda(W, variant=2)
+    X1, p1 = K._gj_core_cuda(W, variant=1)
+    assert torch.equal(p2, p1)
+    assert torch.equal(X2, X1)
+
+
+def test_gj_chooser_takes_the_cluster_panel_where_it_holds(cuda):
+    """Through the plan alone (nothing allocated): the one-block kernel up
+    to SMALL_N_MAX, the cluster panel at 3,105 and 4,801 nodes, a launch a
+    column where no cluster holds the panel (12,097, and the L2 set-up's
+    47,745)."""
+    lib = K._library()
+    assert K.gj_variant(lib, 1484, 374) == 0
+    assert K.gj_variant(lib, 2, 3105) == 2
+    assert K.gj_variant(lib, 2, 4801) == 2
+    assert K.gj_variant(lib, 1, 12097) == 1
+    assert K.gj_variant(lib, 1, 47745) == 1
+
+
+def test_gj_paths_count_each_call_once(cuda):
+    """``kernels.gj_paths`` adds one a launched call, to its path, beside
+    ``launches["gj_inverse"]``; a CPU call counts nowhere."""
+    K.reset_launch_counts()
+    K.gj_inverse(torch.tensor(well_conditioned(2, 300), device=cuda))
+    K.gj_inverse(torch.tensor(well_conditioned(1, 600), device=cuda))
+    K.gj_inverse(torch.tensor(well_conditioned(1, 600), device=cuda))
+    K._gj_core_cuda(torch.tensor(well_conditioned(1, 600), device=cuda),
+                    variant=1)
+    K.gj_inverse(torch.tensor(well_conditioned(1, 40)))
+    assert K.gj_paths == {"one_block": 1, "cluster_panel": 2,
+                          "column_panel": 1}
+    assert K.launches["gj_inverse"] == 4
 
 
 def test_entry_points_default_to_the_card(cuda):

@@ -53,7 +53,7 @@ def emulated_pb(tmp_path_factory):
                                    "-DPB_ALL_DESIGNS"))
 
 
-def run_emulated(lib, A, panel, variant):
+def run_emulated(lib, A, panel, variant, cluster=0):
     """``kernels._gj_core_cuda`` on numpy arrays; scratch and padding are
     filled with NaN so that any read of an unwritten value shows."""
     S, N, _ = A.shape
@@ -61,14 +61,14 @@ def run_emulated(lib, A, panel, variant):
     work = np.full((S, N, ld), np.nan, np.float32)
     work[:, :, :N] = A
     out = np.full((S, N, N), np.nan, np.float32)
-    n_f32 = lib.gj_scratch_floats(S, N, panel, variant)
-    n_i32 = lib.gj_scratch_ints(S, N, panel, variant)
+    n_f32 = lib.gj_scratch_floats(S, N, panel, variant, cluster)
+    n_i32 = lib.gj_scratch_ints(S, N, panel, variant, cluster)
     assert n_f32 > 0 and n_i32 > 0
     fscratch = np.full(n_f32, np.nan, np.float32)
     iscratch = np.full(n_i32, -(2 ** 30), np.int32)
     err = lib.gj_inverse_f32(work.ctypes.data, out.ctypes.data,
                              fscratch.ctypes.data, iscratch.ctypes.data,
-                             S, N, panel, variant, None)
+                             S, N, panel, variant, cluster, None)
     assert err == 0
     return out, iscratch[:S * N].reshape(S, N)
 
@@ -84,36 +84,83 @@ def matrix(S, N, rows):
     return A
 
 
-# variant 0: one block a matrix; variant 1: the panel path
-@pytest.mark.parametrize("S,N,panel,variant,rows", [
-    (2, 40, 32, 0, "permuted"),      # one full panel and a ragged one
-    (1, 20, 32, 0, "as made"),       # N below the panel width
-    (1, 100, 16, 0, "reversed"),     # pivots from the last rows
-    (1, 20, 64, 1, "as made"),
-    (2, 40, 16, 1, "permuted"),
-    (1, 70, 32, 1, "reversed"),      # three 32-row blocks, ragged panel
-])
-def test_gj_source_on_host_matches_plain(emulated, S, N, panel, variant, rows):
+# variant 0: one block a matrix; variant 1: the panel path, a launch a
+# column; variant 2: the panel path, a cluster launch a panel, in clusters
+# of `cluster` blocks (0: the plan's)
+GJ_SOURCE_CASES = [
+    (2, 40, 32, 0, 0, "permuted"),      # one full panel and a ragged one
+    (1, 20, 32, 0, 0, "as made"),       # N below the panel width
+    (1, 100, 16, 0, 0, "reversed"),     # pivots from the last rows
+    (1, 20, 64, 1, 0, "as made"),
+    (2, 40, 16, 1, 0, "permuted"),
+    (1, 70, 32, 1, 0, "reversed"),      # three 32-row blocks, ragged panel
+    (1, 20, 64, 2, 0, "as made"),       # N below one panel
+    (2, 70, 32, 2, 2, "permuted"),      # a ragged last panel, 2 blocks
+    (1, 100, 64, 2, 2, "reversed"),     # pivots from the other block
+    (1, 130, 32, 2, 4, "reversed"),     # 4 blocks, ragged last panel
+    (2, 90, 16, 2, 4, "permuted"),      # one block past the last row
+]
+
+
+def gj_case_id(case):
+    S, N, panel, variant, cluster, rows = case
+    if variant == 2:
+        return f"{S}-{N}-{panel}-{variant}-cluster{cluster}-{rows}"
+    return f"{S}-{N}-{panel}-{variant}-{rows}"
+
+
+@pytest.mark.parametrize("S,N,panel,variant,cluster,rows", GJ_SOURCE_CASES,
+                         ids=[gj_case_id(c) for c in GJ_SOURCE_CASES])
+def test_gj_source_on_host_matches_plain(emulated, S, N, panel, variant,
+                                         cluster, rows):
     """The same pivot rows as the plain version and the same inverse to f32
-    round-off (1e-5 of its scale; the sums are rounded in another order)."""
+    round-off (1e-5 of its scale; the sums are rounded in another order);
+    variant 2 equal to variant 1 on the same input, bit for bit."""
     A = matrix(S, N, rows)
-    X, pivots = run_emulated(emulated, A, panel, variant)
+    X, pivots = run_emulated(emulated, A, panel, variant, cluster)
     Xp, pivots_p = K._gj_core_plain(torch.tensor(A), panel)
     assert np.isfinite(X).all()
     assert np.array_equal(pivots, pivots_p.numpy())
     np.testing.assert_allclose(X, Xp.numpy(), rtol=0,
                                atol=1e-5 * float(Xp.abs().max()))
+    if variant == 2:
+        X1, pivots_1 = run_emulated(emulated, A, panel, 1)
+        assert np.array_equal(pivots, pivots_1)
+        assert np.array_equal(X.view(np.int32), X1.view(np.int32))
+    if rows == "reversed":
+        assert pivots[0, 0] == N - 1
 
 
 def test_gj_source_rejects_bad_plans(emulated):
     """No kernel: the one-block variant above its largest order or panel,
-    a panel-path width off the 4-column grid, an empty batch."""
-    for S, N, panel, variant in ((1, K.SMALL_N_MAX + 1, 32, 0),
-                                 (1, 100, 64, 0), (1, 100, 30, 1),
-                                 (1, 100, 128, 1), (0, 100, 64, 1),
-                                 (1, 100, 0, 1), (1, 100, 32, 2)):
-        assert emulated.gj_scratch_floats(S, N, panel, variant) == 0
-        assert emulated.gj_scratch_ints(S, N, panel, variant) == 0
+    a panel-path width off the 4-column grid, an empty batch, a variant
+    that does not exist; for the cluster panel also a cluster above 16
+    blocks, one too small to hold its rows, and an order whose panel no
+    cluster holds."""
+    for S, N, panel, variant, cluster in (
+            (1, K.SMALL_N_MAX + 1, 32, 0, 0), (1, 100, 64, 0, 0),
+            (1, 100, 30, 1, 0), (1, 100, 128, 1, 0), (0, 100, 64, 1, 0),
+            (1, 100, 0, 1, 0), (1, 100, 32, 3, 0), (1, 100, 30, 2, 0),
+            (1, 100, 128, 2, 0), (0, 100, 64, 2, 0), (1, 100, 64, 2, 17),
+            (1, 3105, 64, 2, 4), (1, 47745, 64, 2, 0), (1, 12097, 64, 2, 0)):
+        assert emulated.gj_scratch_floats(S, N, panel, variant, cluster) == 0
+        assert emulated.gj_scratch_ints(S, N, panel, variant, cluster) == 0
+
+
+def test_gj_source_plans_the_cluster_path(emulated):
+    """The wrapper's choice from the plan: one block a matrix up to
+    SMALL_N_MAX, the cluster panel where a cluster's blocks hold the
+    panel's rows (the dense stage batch at 3,105 and 4,801 nodes, the
+    Schwarz batches), a launch a column above that (12,097 and the L2
+    set-up's 47,745); the cluster panel's scratch no larger than the
+    column path's."""
+    for S, N, variant in ((96, 369, 0), (1484, 374, 0), (2, 3105, 2),
+                          (2, 4801, 2), (8, 1685, 2), (16, 1685, 2),
+                          (1, 12097, 1), (2, 12097, 1), (1, 47745, 1)):
+        assert K.gj_variant(emulated, S, N) == variant, (S, N)
+    for S, N in ((2, 3105), (2, 4801), (8, 1685)):
+        for fn in (emulated.gj_scratch_floats, emulated.gj_scratch_ints):
+            assert 0 < fn(S, N, K.PANEL, 2, 0) <= fn(S, N, K.PANEL, 1, 0)
 
 
 # --- kernel 2: fused PB element residual + Jacobian -------------------------
