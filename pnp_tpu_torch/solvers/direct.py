@@ -12,7 +12,9 @@ f64 element-block operator:
 Each refinement step cuts the error by about kappa(A) * eps_f32. The
 refinement loop checks its residual on the host once per step (through
 ``utils.profiling.host_read``); each refinement solve is a
-``direct.refine`` span with its ``refinements``.
+``direct.refine`` span with its ``refinements``, each apply of an
+inverse a ``direct.inverse_apply`` span, and the very-large tier's
+set-up a ``direct.inverse_large_setup`` span with its probe's verdict.
 :func:`make_lu_refine_solver` is the same loop on f32 LU factors
 (``torch.linalg.lu_factor``; the reference uses ``jax.scipy`` LU there).
 The very-large Poisson tier keeps its one (ndof, ndof) inverse in the
@@ -134,14 +136,18 @@ def scaled_inv_apply(Ainv, rk):
     unscaled): d = S (X_eq (S rk)), X_eq (1, N, N) f32 and s (N,) f32.
     The reference keeps X_eq at a 128-padded size and pads and crops the
     vectors here; that pad serves its TPU kernel's lane width, kernel 1
-    takes any N, so here X_eq has exactly rk's length."""
-    if isinstance(Ainv, tuple):
-        X_eq, s = Ainv
-        v = (rk * s).to(torch.float32)
-        d = torch.einsum("sij,sj->si", X_eq, v)
-        return (d * s).to(rk.dtype)
-    d = torch.einsum("sij,sj->si", Ainv, rk.to(torch.float32))
-    return d.to(rk.dtype)
+    takes any N, so here X_eq has exactly rk's length. A
+    ``direct.inverse_apply`` span (s, n, equilibrated)."""
+    scaled = isinstance(Ainv, tuple)
+    with span("direct.inverse_apply", s=rk.shape[0], n=rk.shape[-1],
+              equilibrated=scaled):
+        if scaled:
+            X_eq, s = Ainv
+            v = (rk * s).to(torch.float32)
+            d = torch.einsum("sij,sj->si", X_eq, v)
+            return (d * s).to(rk.dtype)
+        d = torch.einsum("sij,sj->si", Ainv, rk.to(torch.float32))
+        return d.to(rk.dtype)
 
 
 def inv_f32_setup_large(A_eq32, s32, op_probe):
@@ -156,24 +162,27 @@ def inv_f32_setup_large(A_eq32, s32, op_probe):
 
     ``ok == False`` is a verdict of the arithmetic, counted in
     ``probe_failures``: the caller keeps its iterative Poisson path. A
-    kernel that does not build or launch raises."""
+    kernel that does not build or launch raises. A
+    ``direct.inverse_large_setup`` span (n, ok)."""
     if A_eq32.shape[0] != 1:
         raise ValueError("very-large tier: one matrix per call")
     n = A_eq32.shape[-1]
-    X_eq = K.gj_inverse(A_eq32, equilibrate=False)
-    pre = (X_eq, s32)
-    # finite: by the extremes, which carry a NaN along (an elementwise
-    # isfinite would make temporaries of the matrix's own size)
-    ok = torch.isfinite(torch.stack(torch.aminmax(X_eq))).all()
-    for v in probe_vectors(n, device=A_eq32.device).to(torch.float64):
-        b = op_probe(v[None])
-        x1 = scaled_inv_apply(pre, b)
-        r1 = b - op_probe(x1)
-        x2 = x1 + scaled_inv_apply(pre, r1)
-        nb = torch.linalg.vector_norm(b, dim=-1)
-        nr2 = torch.linalg.vector_norm(b - op_probe(x2), dim=-1)
-        ok = ok & torch.all(torch.isfinite(nr2) & (nr2 <= 0.25 * nb))
-    ok = host_read(ok)
+    with span("direct.inverse_large_setup", n=n) as sp:
+        X_eq = K.gj_inverse(A_eq32, equilibrate=False)
+        pre = (X_eq, s32)
+        # finite: by the extremes, which carry a NaN along (an elementwise
+        # isfinite would make temporaries of the matrix's own size)
+        ok = torch.isfinite(torch.stack(torch.aminmax(X_eq))).all()
+        for v in probe_vectors(n, device=A_eq32.device).to(torch.float64):
+            b = op_probe(v[None])
+            x1 = scaled_inv_apply(pre, b)
+            r1 = b - op_probe(x1)
+            x2 = x1 + scaled_inv_apply(pre, r1)
+            nb = torch.linalg.vector_norm(b, dim=-1)
+            nr2 = torch.linalg.vector_norm(b - op_probe(x2), dim=-1)
+            ok = ok & torch.all(torch.isfinite(nr2) & (nr2 <= 0.25 * nb))
+        ok = host_read(ok)
+        sp.set(ok=ok)
     if not ok:
         probe_failures["count"] += 1
     return X_eq, ok

@@ -32,7 +32,9 @@ from pnp_tpu_torch.workloads import instationary_pnp_from_pb as W
 PROGRAM_SPANS = {
     "pnp.species_factor", "pnp.species_step", "pnp.poisson_solve",
     "krylov.bicgstab", "krylov.cg", "ras.local", "ras.coarse",
-    "amg.setup", "amg.build", "amg.smooth", "amg.coarse", "direct.refine", "host.sync", "host.copy", "kernels.gj_inverse",
+    "amg.setup", "amg.build", "amg.smooth", "amg.coarse", "direct.refine",
+    "direct.inverse_apply", "direct.inverse_large_setup", "host.sync",
+    "host.copy", "kernels.gj_inverse",
     "kernels.pb_residual_jacobian", "kernels.element_spmv", "ionflux",
     "pnp.step", "pnp.output",
     "pnp.checkpoint", "pnp.setup.phase_a", "pnp.setup.phase_b",
@@ -40,21 +42,30 @@ PROGRAM_SPANS = {
 
 #: stretches of the production system at 488 dofs, each on one Poisson
 #: tier: the tier, the solver variant (None: the case's own), the build's
-#: options, and the spans it opens beside the species step and the solve
+#: options, the spans the stretch opens beside the species step and the
+#: solve, and the spans its build opens that the stretch does not. The
+#: very-large tier is forced at this size by setting
+#: ``POISSON_INV_MAX_DOFS`` to 0 while it builds (:func:`_build`)
 CASES = {
-    "dense": ("dense", None, {}, {"direct.refine", "kernels.gj_inverse"}),
+    "dense": ("dense", None, {}, {"direct.refine", "direct.inverse_apply",
+                                  "kernels.gj_inverse"}, set()),
     "ras": ("ras", None, dict(dense_poisson_threshold=0, ras_block_size=64,
                               poisson_inv_threshold=0),
             {"krylov.bicgstab", "ras.local", "ras.coarse",
-             "kernels.gj_inverse"}),
+             "kernels.gj_inverse"}, set()),
     "inverse": ("inverse", None, dict(dense_poisson_threshold=0,
                                       ras_block_size=64),
-                {"direct.refine", "krylov.bicgstab", "ras.local",
-                 "kernels.gj_inverse"}),
+                {"direct.refine", "direct.inverse_apply", "krylov.bicgstab",
+                 "ras.local", "kernels.gj_inverse"}, set()),
+    "inverse_large": ("inverse_large", None,
+                      dict(dense_poisson_threshold=0, ras_block_size=64),
+                      {"direct.inverse_apply", "direct.refine",
+                       "kernels.gj_inverse"},
+                      {"direct.inverse_large_setup"}),
     "krylov": ("krylov", "BCGS_Jacobi", dict(dense_poisson_threshold=0),
-               {"krylov.bicgstab"}),
+               {"krylov.bicgstab"}, set()),
     "amg": ("krylov", "CG_AMG_SSOR", dict(dense_poisson_threshold=0),
-            {"krylov.cg", "amg.build", "amg.smooth", "amg.coarse"}),
+            {"krylov.cg", "amg.build", "amg.smooth", "amg.coarse"}, set()),
 }
 
 #: what ``torch.cuda.set_sync_debug_mode("warn")`` says at each operation
@@ -92,10 +103,12 @@ def test_spans_nest_with_parent_ids_and_keep_attrs():
     assert summary["outer"]["host_s"] >= summary["inner"]["host_s"] >= 0.0
 
 
-def test_recording_off_records_nothing():
+@pytest.mark.parametrize("case", ["dense", "inverse_large"])
+def test_recording_off_records_nothing(case):
     """Off: one shared no-op context for every name, host reads return the
-    value and count nothing, and a profiled species step and Poisson solve
-    carry no program range."""
+    value and count nothing, and a profiled build (the very-large tier's
+    set-up among them), presolve, species step and Poisson solve carry no
+    program range."""
     assert P.span("pnp.step", step=3) is P.span("ras.local")
     P.counters.host_syncs = 0
     with P.span("pnp.step") as sp:
@@ -103,11 +116,10 @@ def test_recording_off_records_nothing():
         assert P.host_read(torch.tensor(True)) is True
         assert P.host_copy(torch.ones(2)).tolist() == [1.0, 1.0]
     assert P.counters.host_syncs == 0
-    sysp, space = problems.pore_case(30, 17)
-    system = W.build_pnp_system(sysp, space, device="cpu")
-    u = system.poisson_solve(system.uphi0, system.ucp0, system.ucm0)[0]
     acts = [torch.profiler.ProfilerActivity.CPU]
     with torch.profiler.profile(activities=acts) as prof:
+        system = _build(case, "cpu")
+        u = system.poisson_solve(system.uphi0, system.ucp0, system.ucm0)[0]
         cp, cm, _ = system.species_step(u, system.ucp0, system.ucm0)
         system.poisson_solve(u, cp, cm)
     names = {e.name for e in prof.events()}
@@ -241,16 +253,28 @@ def _has_mask(index) -> bool:
                and p.ndim > 0 for p in parts)
 
 
-def _system(case, device):
-    """The case's system on ``device`` and its presolved potential."""
-    tier, solver, options, _ = CASES[case]
+def _build(case, device):
+    """The case's system on ``device``; the very-large tier forced by
+    ``POISSON_INV_MAX_DOFS`` 0 while it builds."""
+    tier, solver, options = CASES[case][:3]
     sysp, space = problems.pore_case(30, 17)
     if solver:
         sysp = dataclasses.replace(sysp, linearSolver=solver)
-    system = W.build_pnp_system(sysp, space, device=device, **options)
+    with pytest.MonkeyPatch.context() as mp:
+        if tier == "inverse_large":
+            mp.setattr(W, "POISSON_INV_MAX_DOFS", 0)
+        system = W.build_pnp_system(sysp, space, device=device, **options)
     assert system.poisson_tier == tier
-    return system, system.poisson_solve(system.uphi0, system.ucp0,
-                                        system.ucm0)[0]
+    return system
+
+
+def _system(case, device):
+    """The case's system on ``device``, the span names its build records,
+    and its presolved potential."""
+    with P.recording() as rec:
+        system = _build(case, device)
+    return system, {s.name for s in rec.spans}, system.poisson_solve(
+        system.uphi0, system.ucp0, system.ucm0)[0]
 
 
 def _stretch(system, u):
@@ -260,11 +284,13 @@ def _stretch(system, u):
     return k
 
 
-def _check_spans(case, system, rec, k):
+def _check_spans(case, system, rec, k, built):
+    """The stretch's spans, with ``built`` the names its build recorded."""
     names = {s.name for s in rec.spans}
     assert CASES[case][3] | {"pnp.species_step", "pnp.poisson_solve",
                                   "host.sync"} <= names
-    assert names <= PROGRAM_SPANS
+    assert CASES[case][4] <= built - names
+    assert names | built <= PROGRAM_SPANS
     step = [s for s in rec.spans if s.name == "pnp.species_step"]
     assert step[0].attrs == {"iterations": k}
     solve = [s for s in rec.spans if s.name == "pnp.poisson_solve"]
@@ -281,7 +307,7 @@ def test_the_counter_misses_no_sync(case, monkeypatch):
     ``.tolist()``, ``.numpy()``, ``nonzero``, masked indexing);
     unrecorded, the stretch reads as often (recording adds none). A read
     that only a CUDA branch makes shows only on the card (below)."""
-    system, u = _system(case, "cpu")
+    system, built, u = _system(case, "cpu")
     acts = [torch.profiler.ProfilerActivity.CPU]
     reads, python_reads = {}, {}
     core = K._gj_core_plain
@@ -295,11 +321,43 @@ def test_the_counter_misses_no_sync(case, monkeypatch):
         if on:
             assert rec.counters.host_syncs == reads[on] > 0
             assert rec.counters.host_syncs == python_reads[on]
-            names = _check_spans(case, system, rec, k)
+            names = _check_spans(case, system, rec, k, built)
             events = {e.name for e in prof.events()}
             assert names <= events       # the spans are profiler ranges
     assert reads[True] == reads[False]
     assert python_reads[True] == python_reads[False]
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_inverse_apply_spans_count_the_refinements_and_the_probe(case):
+    """Over a build, its presolve and a stretch, recorded: one
+    ``direct.inverse_apply`` span an apply, as many as the
+    ``direct.refine`` spans' refinements and the very-large probe's four
+    applies (two refinements of each of its two vectors), each apply
+    inside a refinement or the probe."""
+    with P.recording() as rec:
+        system = _build(case, "cpu")
+        u = system.poisson_solve(system.uphi0, system.ucp0, system.ucm0)[0]
+        _stretch(system, u)
+    by = {}
+    for s in rec.spans:
+        by.setdefault(s.name, []).append(s)
+    refinements = sum(s.attrs["refinements"]
+                      for s in by.get("direct.refine", []))
+    setups = by.get("direct.inverse_large_setup", [])
+    applies = by.get("direct.inverse_apply", [])
+    assert len(applies) == refinements + 4 * len(setups)
+    assert (len(applies) > 0) == (case in ("dense", "inverse",
+                                           "inverse_large"))
+    owners = {s.id for s in by.get("direct.refine", []) + setups}
+    assert all(s.parent in owners for s in applies)
+    if case == "inverse_large":
+        (setup,) = setups
+        assert setup.attrs == {"n": system.space.ndof, "ok": True}
+        assert [s.attrs for s in applies if s.parent == setup.id] == [
+            {"s": 1, "n": system.space.ndof, "equilibrated": True}] * 4
+        gj = [s for s in by["kernels.gj_inverse"] if s.parent == setup.id]
+        assert [s.attrs["n"] for s in gj] == [system.space.ndof]
 
 
 @pytest.mark.cuda
@@ -312,7 +370,7 @@ def test_the_counter_misses_no_sync_on_the_card(case):
     warnings; unrecorded, the stretch warns as often."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card)")
-    system, u = _system(case, "cuda")
+    system, built, u = _system(case, "cuda")
     _stretch(system, u)
     torch.cuda.synchronize()
     syncs = {}
@@ -328,5 +386,5 @@ def test_the_counter_misses_no_sync_on_the_card(case):
         syncs[on] = sum(SYNC_WARNING in str(w.message) for w in caught)
         if on:
             assert rec.counters.host_syncs == syncs[on] > 0
-            _check_spans(case, system, rec, k)
+            _check_spans(case, system, rec, k, built)
     assert syncs[True] == syncs[False]
