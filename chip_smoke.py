@@ -23,6 +23,18 @@ result line:
    the main path calls: the device time of each (profiler), the time of a
    call with the wrapper included, the share of the bound reached, and the
    floor (an empty kernel on the same grid, launched the same way);
+4b. the Krylov kernels (``csrc/cg_update.cu``: ``cg_update``,
+   ``cg_direction``, ``krylov_unconverged``) against the torch operations
+   they replace, on the same CUDA tensors bit for bit, at 189,697 values a
+   system (the AMG cell's size), one and two systems, a call timed back to
+   back (``[cg kernels]``);
+4c. the graphed Krylov loop (``csrc/krylov_loop.cu``) against the eager
+   loop (``[graph loop]``): CG under the two-level AMG on constrained
+   Laplace systems on the bench's pore mesh refined 3 times (189,697
+   nodes), one system to 1e-10, two restarted every 15 to 1e-10 and the
+   same cut at 40 iterations: the same count, relative residuals, bits and
+   launches, and the loops, captures and iterations run that the segments
+   call for;
 5. the whole slice on ``pore_case(30, 17)``, CUDA against the CPU plain
    path, to 1e-9 relative;
 6. the main path: ``run_instationary_pnp_from_pb`` on ``pore_case(100, 55)``
@@ -222,7 +234,10 @@ launches under ``launches_sharded_amg`` (kernel 1: 0),
 ``launches_sharded_amg_procs`` and ``launches_sharded_amg_nccl``. Kernel 3's
 error and times are those of ``[bench]``'s L0 Poisson operator, its three
 forms under ``bench_shape``, and its launches are counted on every path
-but the ranks'. The last line is ``{"ok": true, "device": {...}}``.
+but the ranks'. The Krylov kernels' error (0: bitwise) and times are
+phase 4b's, one system at the top and two under ``pair_shape``, and their
+launches are counted on every path as ``launches_<path>``: every path
+checks the kernels it runs (``check_launched``). The last line is ``{"ok": true, "device": {...}}``.
 Needs a CUDA device and ``nvcc``; writes the runs' outputs under
 ``chip_smoke_out/`` (gitignored).
 """
@@ -359,8 +374,27 @@ SHARD_PROCS_STEPS = 2
 # so kernel 1 has no caller there; kernel 3 serves phase A's operators on
 # the whole dof map (the sharded step's SpMVs keep the shards' scatter)
 PATH_KERNELS = {"BCGS_SSORk": ("gj_inverse", "pb_residual_jacobian",
-                               "element_spmv"),
-                "CG_AMG_SSOR": ("pb_residual_jacobian", "element_spmv")}
+                               "element_spmv", "krylov_unconverged"),
+                "CG_AMG_SSOR": ("pb_residual_jacobian", "element_spmv",
+                                "cg_update", "cg_direction",
+                                "krylov_unconverged")}
+# kernels 1-3, which the paths below launch (or, where said, must not)
+STEP_KERNELS = ("gj_inverse", "pb_residual_jacobian", "element_spmv")
+# a pore path under BCGS_SSORk: kernels 1-3 and the Krylov flag of every
+# BiCGSTAB on the card (PB Newton's at least); CG's updates run only where
+# a solve is CG, under CG_AMG_SSOR (PATH_KERNELS) and CG_Jacobi
+BCGS_PATH = PATH_KERNELS["BCGS_SSORk"]
+# the Krylov kernels (csrc/cg_update.cu) and the graphed loop
+# (csrc/krylov_loop.cu) at the AMG cell's size: the bench's pore case
+# refined 3 times, 189,697 nodes; the loop's solves (systems, restart
+# period, residual reduction, iteration limit): the Poisson re-solve's CG,
+# the species stages' CG restarted every 15, and that one cut inside a
+# segment
+CG_LEVELS = 3
+CG_NODES = 189_697
+CG_REPS = 200
+CG_LOOP_SOLVES = ((1, 0, 1e-10, 2000), (2, 15, 1e-10, 2000),
+                  (2, 15, 1e-14, 40))
 # the P2 production run on the dense tier (2,709 dofs, 1,280 triangles)
 P2_CASE = (64, 10)
 P2_STEPS = 3
@@ -388,6 +422,17 @@ class PhaseError(RuntimeError):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise PhaseError(msg)
+
+
+def check_launched(counts, want, path: str, none=()) -> None:
+    """Each kernel of ``want`` launched on ``path``, each of ``none`` not;
+    ``counts``: a count a kernel, or a list of them (one a rank)."""
+    for name in (*want, *none):
+        got = counts[name] if isinstance(counts[name], list) else [
+            counts[name]]
+        check(all((n > 0) == (name in want) for n in got),
+              f"kernel {name} launched {counts[name]} times on the {path} "
+              "path")
 
 
 def rel_err(a, b) -> float:
@@ -505,10 +550,9 @@ def pb_check(torch, K, args, E_want: int) -> dict:
     check(E == E_want, f"pb_residual_jacobian: E = {E}, not {E_want}")
     plan = K.PBElement(*tables, *params)
     lib = K._library()
-    index = torch.cuda.current_device()
+    index, raw_stream = K._device_stream(ue.device)
     tpe, _, threads = K.PB_DESIGN
     blocks = -(-E // (threads // tpe))
-    raw_stream = K._raw_stream_of(ue.device)
     empty = lambda: lib.pb_empty_launch(blocks, threads, index, raw_stream())
     out = {}
     for name in PB_VARIANTS:
@@ -721,6 +765,147 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def cg_kernel_checks(torch, K, dev) -> dict:
+    """Phase 4b: the Krylov kernels (``csrc/cg_update.cu``) against the
+    torch operations they replace (``kernels.*_plain``), on the same CUDA
+    tensors, bit for bit, at CG_NODES values a system, for one and two
+    systems (a zero where a divisor is taken, the flag both ways), one
+    launch a call; the time a call back to back (``cuda_ms``: at this size
+    the host's call, wrapper included, sets it, not the device) beside the
+    plain versions' and the bytes' bound. Returns an entry a kernel, the
+    one-system shape at the top and the pair's under ``pair_shape``."""
+    n = CG_NODES
+    out = {name: {} for name in ("cg_update", "cg_direction",
+                                 "krylov_unconverged")}
+    for S in (1, 2):
+        g = torch.Generator(device=dev).manual_seed(S)
+        rand = lambda shape: torch.randn(shape, generator=g,
+                                         dtype=torch.float64, device=dev)
+        x, r, p, Ap, z = (rand((S, n)) for _ in range(5))
+        pAp, rz, rz_new = (rand((S, 1)) for _ in range(3))
+        pAp[0], rz[-1] = 0.0, 0.0
+        want = [v.clone() for v in (x, r, p)]
+        K.cg_update_plain(want[0], want[1], p, Ap, pAp, rz)
+        K.cg_direction_plain(want[2], z, rz_new, rz)
+        before = dict(K.launches)
+        K.cg_update(x, r, p, Ap, pAp, rz)
+        K.cg_direction(p, z, rz_new, rz)
+        same = {"cg_update": torch.equal(x, want[0])
+                and torch.equal(r, want[1]),
+                "cg_direction": torch.equal(p, want[2])}
+        ss = (r * r).sum(-1, keepdim=True)
+        flags = []
+        for scale in (0.5, 2.0):
+            tol = torch.sqrt(ss) * scale
+            tol[0] = torch.sqrt(ss[0])
+            got = K.krylov_unconverged(ss, tol)
+            flags.append(bool(got) == bool(
+                K.krylov_unconverged_plain(ss, tol)) == (scale < 1 and S > 1))
+        same["krylov_unconverged"] = all(flags)
+        launched = {k: K.launches[k] - before[k] for k in out}
+        tol = torch.sqrt(ss) * 2.0
+        calls = {
+            "cg_update": (lambda: K.cg_update(x, r, p, Ap, pAp, rz),
+                          lambda: K.cg_update_plain(x, r, p, Ap, pAp, rz),
+                          48.0, 4.0),
+            "cg_direction": (lambda: K.cg_direction(p, z, rz_new, rz),
+                             lambda: K.cg_direction_plain(p, z, rz_new, rz),
+                             24.0, 2.0),
+            "krylov_unconverged": (lambda: K.krylov_unconverged(ss, tol),
+                                   lambda: K.krylov_unconverged_plain(ss, tol),
+                                   16.0 / n, 2.0 / n)}
+        for name, (kernel, plain, bytes_a, flop_a) in calls.items():
+            ms, plain_ms = (cuda_ms(torch, fn, CG_REPS)
+                            for fn in (kernel, plain))
+            bound_ms, bound_by = bound(flop_a * S * n, PEAK_F64,
+                                       bytes_a * S * n)
+            entry = {"shape": [S, n], "max_abs_err": 0.0 if same[name]
+                     else None, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": None}
+            print(f"[cg kernels] {name} S = {S}, n = {n}: bitwise "
+                  f"{same[name]}, launches {launched[name]}; kernel "
+                  f"{1e3 * ms:.2f} us, torch ops {1e3 * plain_ms:.2f} us, "
+                  f"bound {1e3 * bound_ms:.2f} us ({bound_by})", flush=True)
+            check(same[name], f"{name} (S = {S}) against its plain version")
+            check(launched[name] == (2 if name == "krylov_unconverged"
+                                     else 1), f"{name} launches")
+            if S == 1:
+                out[name].update(entry)
+            else:
+                out[name]["pair_shape"] = entry
+    return out
+
+
+def graph_loop_check(torch, K, dev) -> None:
+    """Phase 4c: the graphed Krylov loop (``csrc/krylov_loop.cu``) against
+    the eager loop, at the AMG cell's size: CG under the two-level AMG on
+    constrained Laplace systems (a second system at twice the operator, a
+    boundary pinned on every other dof) on the bench's pore mesh refined
+    CG_LEVELS times, each solve of CG_LOOP_SOLVES eager and graphed. The
+    graphed solve gives the eager one's iterations, converged flag,
+    relative residuals, x bit for bit and every kernel's launches; it
+    records one capture, a loop for the first segment and one after each
+    restart short of the last iteration, and an iteration run for each
+    iteration but the first and the restarts. Prints both solves' device
+    times."""
+    from pnp_tpu_torch import bench as B
+    from pnp_tpu_torch.fem import assembly as FA
+    from pnp_tpu_torch.fem.geometry import build_volume_tables
+    from pnp_tpu_torch.operators import volume as V
+    from pnp_tpu_torch.solvers import amg, krylov
+
+    _, space = B._load(CG_LEVELS)
+    n = space.ndof
+    check(n == CG_NODES, f"the L{CG_LEVELS} mesh has {n} nodes")
+    vt = build_volume_tables(space, 2, dev)
+    A = V.laplace_jacobian_el(vt)
+    edge = torch.as_tensor(space.bedge_dofs, device=dev).unique()
+    for S, restart, reduction, maxiter in CG_LOOP_SOLVES:
+        free = torch.ones((S, n), dtype=torch.bool, device=dev)
+        free[0, edge] = False
+        if S > 1:
+            free[1, edge[::2]] = False
+        A_el = torch.stack([A, 2.0 * A][:S])
+        op = FA.make_constrained_operator(A_el, vt.dofmap, n, free)
+        diag = torch.where(free, FA.scatter_add_batched(torch.diagonal(
+            A_el, dim1=-2, dim2=-1), vt.dofmap, n), 1.0)
+        t = torch.arange(n, dtype=torch.float64, device=dev)
+        b = torch.stack([torch.sin(t), torch.cos(0.5 * t)])[:S] * free
+        ctx = amg.make_amg_context(vt.dofmap, n, free,
+                                   dof_coords=space.dof_coords)
+        M = amg.two_level_precond(A_el, ctx, diag)
+        runs = {}
+        for graph in (False, True):
+            before, graphs = dict(K.launches), dict(krylov.graph_counts)
+            res, ms = timed(torch, lambda: krylov.cg(
+                op, b, torch.zeros_like(b), M, reduction, maxiter,
+                restart=restart, graph=graph))
+            runs[graph] = (res, ms, {k: K.launches[k] - before[k]
+                                     for k in before},
+                           {k: krylov.graph_counts[k] - graphs[k]
+                            for k in graphs})
+        (e, e_ms, e_n, _), (g, g_ms, g_n, g_c) = runs[False], runs[True]
+        k = e.iterations
+        want = {"captures": 1, "loops": 1 + ((k - 1) // restart if restart
+                                             else 0),
+                "replays": k - 1 - (k // restart if restart else 0)}
+        same = (g.iterations == k and g.converged == e.converged
+                and torch.equal(g.relres, e.relres) and torch.equal(g.x, e.x))
+        print(f"[graph loop] CG under AMG, {S} x {n} dofs, restart "
+              f"{restart}, reduction {reduction:g}, maxiter {maxiter}: {k} "
+              f"its (converged {e.converged}), eager {e_ms:.1f} ms "
+              f"({1e3 * e_ms / k:.1f} us an iteration), graphed loop "
+              f"{g_ms:.1f} ms ({1e3 * g_ms / k:.1f} us an iteration), "
+              f"{g_c}; bitwise {same}, launches equal {g_n == e_n}",
+              flush=True)
+        check(same, "the graphed loop against the eager loop")
+        check(g_n == e_n, f"launches: graphed {g_n}, eager {e_n}")
+        check(g_c == want, f"graph counts {g_c}, not {want}")
+        check(e.converged == (k < maxiter) and k > restart + 1,
+              "a solve stopped short of a loop after a restart")
+
+
 def gj_checks(torch, K, contraction_ok, dev):
     """Kernel 1 at the reference kernel's test shapes and on a row-permuted
     matrix (tests/test_pallas.py:49-85)."""
@@ -884,8 +1069,7 @@ def ras_main(torch, K, W, direct, pore_case, dev):
                                  for i in range(RAS_STEPS)],
           f"factor refresh schedule {res.factor_rebuilt}")
     check(failures == 0, f"{failures} contraction-probe failures")
-    for name, n in counts.items():
-        check(n > 0, f"kernel {name} was not launched on the block-RAS path")
+    check_launched(counts, BCGS_PATH, "block-RAS")
     return res, counts
 
 
@@ -1228,10 +1412,10 @@ def dist_main(torch, K, TD, direct, pore_case, ras_res, dev):
     want = res.pb_jacobian_builds + 1 + DIST_STEPS // RAS_REFRESH
     check(counts["gj_inverse"] == want, f"gj_inverse launched "
           f"{counts['gj_inverse']} times, not {want}")
-    for name, n in counts.items():
-        # the owner-partitioned driver's SpMV is its own: no kernel 3
-        check((n == 0) == (name == "element_spmv"), f"kernel {name} "
-              f"launched {n} times on the distributed path")
+    # the owner-partitioned driver's SpMV is its own: no kernel 3
+    check_launched(counts, ("gj_inverse", "pb_residual_jacobian",
+                            "krylov_unconverged"), "distributed",
+                   none=("element_spmv",))
     pb_err = rel_err(torch.from_numpy(system.to_global(system.pb)),
                      ras_res.system.pb.cpu())
     slack = dist_fields_err(res, ras_res, scaled_err)
@@ -1613,10 +1797,10 @@ def procs_gloo(torch, TD, MS, pore_case, dev):
               for n in ("phi", "cp", "cm")), "non-finite or misshapen final "
           "state")
     want = int(r["pb_jacobian_builds"]) + 1 + DIST_STEPS // RAS_REFRESH
-    for name, counts in launches.items():
-        # the owner-partitioned ranks' SpMV is their own: no kernel 3
-        check(all((c == 0) == (name == "element_spmv") for c in counts),
-              f"kernel {name} launched {counts} times by rank")
+    # the owner-partitioned ranks' SpMV is their own: no kernel 3
+    check_launched(launches, ("gj_inverse", "pb_residual_jacobian",
+                              "krylov_unconverged"), "[procs gloo] ranks'",
+                   none=("element_spmv",))
     check(launches["gj_inverse"] == [want] * PROCS_RANKS,
           f"gj_inverse launched {launches['gj_inverse']} times, not {want} "
           "on each rank")
@@ -1808,8 +1992,7 @@ def sharded_main(torch, K, W, direct, make_scalar_context, maybe_trace,
               for v in (res.phi, res.cp, res.cm)), "non-finite or misshapen "
           "final state")
     check(failures == 0, f"{failures} contraction-probe failures")
-    for name, n in counts.items():
-        check(n > 0, f"kernel {name} was not launched on the sharded path")
+    check_launched(counts, BCGS_PATH, "sharded")
     check(err <= SHARD_TOL, "[sharded] K = 8 against K = 1")
 
     gpu, cpu = (run(SHARD_K, d, SHARD_PARITY_CASE, SHARD_PARITY_STEPS)
@@ -1945,10 +2128,7 @@ def sharded_procs(torch, W, MS, pore_case, dev, solver="BCGS_SSORk",
     check(str(r["poisson_tier"]) == "krylov", f"the {tag} ranks' tier")
     check(int(r["n_ranks"]) == PROCS_RANKS, "ranks")
     check(same, f"[{tag} procs] the ranks' final fields differ")
-    for kname, cs in launches.items():
-        if kname in PATH_KERNELS[solver]:
-            check(all(x > 0 for x in cs), f"kernel {kname} was not "
-                  f"launched on every rank of [{tag} procs]")
+    check_launched(launches, PATH_KERNELS[solver], f"[{tag} procs] ranks'")
     check(err <= SHARD_TOL, f"[{tag} procs] against one process")
 
     r2 = procs_launch(MS, f"{name}_nccl", 1, [
@@ -1967,10 +2147,7 @@ def sharded_procs(torch, W, MS, pore_case, dev, solver="BCGS_SSORk",
           + f", Poisson its {r2['poisson_iterations'].tolist()} "
           f"({ref.poisson_iterations}); launches {launches2}; against one "
           f"process (both deterministic) {err2:.3e} (bitwise)", flush=True)
-    for kname, cs in launches2.items():
-        if kname in PATH_KERNELS[solver]:
-            check(cs > 0, f"kernel {kname} was not launched on the NCCL "
-                  "rank")
+    check_launched(launches2, PATH_KERNELS[solver], "NCCL rank's")
     check(err2 == 0.0, f"[{tag} nccl] not bitwise equal to one process")
     return launches, launches2
 
@@ -2038,12 +2215,9 @@ def sharded_amg_main(torch, K, W, direct, make_scalar_context, maybe_trace,
                   for v in (r.phi, r.cp, r.cm)), "non-finite or misshapen "
               "final state")
     check(failures == 0, f"{failures} contraction-probe failures")
-    for name, n in counts.items():
-        if name in PATH_KERNELS["CG_AMG_SSOR"]:
-            check(n > 0, f"kernel {name} was not launched on the sharded "
-                  "AMG path")
-        else:
-            check(n == 0, f"kernel {name} launched on the sharded AMG path")
+    want = PATH_KERNELS["CG_AMG_SSOR"]
+    check_launched(counts, want, "sharded AMG",
+                   none=[k for k in STEP_KERNELS if k not in want])
     check(err <= SHARD_TOL, "[sharded amg] K = 8 against the unsharded "
           "driver")
 
@@ -2103,8 +2277,7 @@ def p2_phase(torch, K, W, problems, make_scalar_context, dev):
     check((g.system.factor_kind, g.system.poisson_tier) == ("dense", "dense"),
           "P2: the dense tier not taken")
     check(max(err, cur) <= SLICE_REL_TOL, "P2 run, CUDA vs CPU")
-    for name, n in counts.items():
-        check(n > 0, f"kernel {name} was not launched on the P2 run")
+    check_launched(counts, BCGS_PATH, "P2 run's")
     ctx = make_scalar_context(sys_p, space_p, component=0, quad_order=3,
                               device=dev)
     vt = ctx.vt
@@ -2191,8 +2364,7 @@ def bench_phase(torch, K, W, direct, make_scalar_context, dev):
     bad = B.null_or_nonfinite({"headline": head, "scaled": scaled})
     check(not bad, f"null or non-finite values in the results: {bad}")
     check(failures == 0, f"{failures} contraction-probe failures")
-    for name, n in counts.items():
-        check(n > 0, f"kernel {name} was not launched on the bench's path")
+    check_launched(counts, BCGS_PATH, "bench's")
 
     t0 = time.perf_counter()
     cpu = bench_calls(B, EN, "cpu")
@@ -2335,8 +2507,7 @@ def very_large_main(torch, K, W, direct, FA, V, BR, make_scalar_context,
                                  for i in range(LARGE_STEPS)]
           and res.factor_kinds == ["ras"] * LARGE_STEPS,
           f"factor schedule {res.factor_rebuilt} {res.factor_kinds}")
-    for name, n in counts.items():
-        check(n > 0, f"kernel {name} was not launched on the very-large path")
+    check_launched(counts, BCGS_PATH, "very-large")
 
     # the run's inverse against the f64 element operator on a seeded b
     X_eq, s = system.poisson_pre
@@ -2492,8 +2663,7 @@ def mid_species_main(torch, K, W, direct, pore_case, ras_res, dev):
     print(f"[mid-species main] final state against phase 8's RAS run: rel "
           f"err {slack:.3e} (stage solves to 1e-5; bound 2e-4)")
     check(slack <= 2e-4, "mid-species run against the RAS run")
-    for name, n in counts.items():
-        check(n > 0, f"kernel {name} was not launched on the mid-species path")
+    check_launched(counts, BCGS_PATH, "mid-species")
 
     sys_s, space_s = pore_case(30, 17)
     run = lambda d: W.run_instationary_pnp_from_pb(
@@ -2619,6 +2789,9 @@ def workloads_phase(torch, K, W, make_scalar_context, pore_case, dev):
                   for n in ("phi", "cp", "cm")),
           "instationary_pnp on the card")
     counts = dict(K.launches)
+    # CG_AMG_SSOR's solves above are CG on the card
+    check_launched(counts, ("cg_update", "cg_direction", "krylov_unconverged"),
+                   "workloads'")
 
     # kernel 2 at the one-wall runs' shape (planar, E = 20,480) against its
     # plain version; the pore runs' (cylindrical, E = 23,552) is phase 9's
@@ -2760,6 +2933,10 @@ def main() -> int:
     pb = pb_check(torch, K, args, 9200)
     del system0, ctx, args
 
+    # ---- 4b-4c. the Krylov kernels and the graphed loop ------------------
+    cg_k = cg_kernel_checks(torch, K, dev)
+    graph_loop_check(torch, K, dev)
+
     # ---- 5. slice parity, CUDA against CPU ------------------------------
     sys_s, space_s = pore_case(30, 17)
     run = lambda d: W.run_instationary_pnp_from_pb(
@@ -2811,8 +2988,7 @@ def main() -> int:
           and all(len(r) == 1 + 2 * sys_big.n_surfaces for r in rows),
           "current.dat rows")
     check(failures == 0, f"{failures} contraction-probe failures")
-    for name, n in counts.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    check_launched(counts, BCGS_PATH, "main")
     with maybe_trace(os.path.join(out_dir, "trace_dense")) as prof:
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
@@ -2975,6 +3151,22 @@ def main() -> int:
          "launches_sharded": shard_counts["element_spmv"],
          "launches_sharded_amg": amg_counts["element_spmv"]},
     ]
+    paths = {"block_ras": ras_counts, "species_krylov": kry_counts,
+             "very_large": large_counts, "mid_species": mid_counts,
+             "workloads": work_counts, "dist": dist_counts, "p2": p2_counts,
+             "procs_gloo": procs_counts, "procs_nccl": nccl_counts,
+             "bench": bench_counts, "sharded": shard_counts,
+             "sharded_procs": shard_procs, "sharded_nccl": shard_nccl,
+             "sharded_amg": amg_counts, "sharded_amg_procs": amg_procs,
+             "sharded_amg_nccl": amg_nccl}
+    kernels += [
+        {"name": name, "route": "cuda",
+         "source": "pnp_tpu_torch/csrc/cg_update.cu",
+         "replaces": "pnp_tpu/solvers/krylov.py (XLA's fusion of the "
+                     "iteration's updates and test; no Pallas kernel)",
+         "launches": counts[name], **entry,
+         **{f"launches_{path}": c[name] for path, c in paths.items()}}
+        for name, entry in cg_k.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -34,7 +34,21 @@ kernels there become CUDA C++ kernels in ``pnp_tpu_torch/csrc/``:
   row gathers over the row's elements from an incidence table built once
   per dof map (:func:`incidence_table`), so it sums in a fixed order and
   without atomics. The plain version is ``fem/assembly.py``'s gather,
-  einsum and ``index_add_``, which the CPU takes.
+  einsum and ``index_add_``, which the CPU takes;
+* :func:`cg_update`, :func:`cg_direction` and :func:`krylov_unconverged`
+  (``csrc/cg_update.cu``) replace no Pallas kernel: the conjugate-gradient
+  iteration's vector updates and convergence flag, which XLA fuses in the
+  reference and which were seventeen torch launches an iteration here, in
+  three launches that round every value as those launches did (the same
+  bits). Bytes bound them; the plain versions are the torch operations,
+  which the CPU takes;
+* :class:`GraphLoop` (``csrc/krylov_loop.cu``) replaces no Pallas kernel:
+  it runs a Krylov iteration captured as a CUDA graph (``solvers/krylov.py``)
+  as the body of a device-side while loop, which its one-thread kernel
+  ends when the iteration's "not converged" flag reads false or after a
+  limit the host sets, so that the host launches and reads once a run of
+  iterations and not once an iteration. It has no plain version: the CPU
+  runs the solvers' eager loop.
 
 Build: at first use one ``nvcc`` per ``csrc/*.cu``, all started together,
 then one link into a shared library with a plain C interface, in
@@ -46,11 +60,13 @@ Routing: a CPU tensor takes the plain PyTorch version; a CUDA tensor
 launches the kernel or raises. There is no fallback from one to the
 other. Each wrapper adds one to ``launches[name]`` where it launches its
 kernel, and nowhere else (a call captured into a CUDA graph by
-``solvers.krylov`` is counted at each replay instead), and opens a ``kernels.<name>`` span
+``solvers.krylov`` is counted once for each iteration its loop runs
+instead), and opens a ``kernels.<name>`` span
 (``utils.profiling``) with the batch ``b`` and the order ``n`` (kernel 1
 also its ``path``, counted in ``gj_paths``; kernel 3: the systems ``s``,
 the elements ``e`` and ``n``). Kernel 3's routing sits
 in ``fem/assembly.py``, whose torch ops are its plain version.
+:class:`GraphLoop`'s launches are ``solvers.krylov.graph_counts["loops"]``.
 """
 
 from __future__ import annotations
@@ -67,7 +83,7 @@ import weakref
 
 import torch
 
-from ..utils.profiling import span
+from ..utils.profiling import host_copy, span
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -76,7 +92,8 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
-launches = {"gj_inverse": 0, "pb_residual_jacobian": 0, "element_spmv": 0}
+launches = {"gj_inverse": 0, "pb_residual_jacobian": 0, "element_spmv": 0,
+            "cg_update": 0, "cg_direction": 0, "krylov_unconverged": 0}
 #: kernel 1's launched calls by path (its variants 0, 2 and 1)
 gj_paths = {"one_block": 0, "cluster_panel": 0, "column_panel": 0}
 
@@ -170,6 +187,8 @@ def _bind_gj(lib):
 def _bind(lib):
     _bind_gj(lib)
     _bind_spmv(lib)
+    _bind_cg(lib)
+    _bind_loop(lib)
     return _bind_pb(lib)
 
 
@@ -197,19 +216,30 @@ def _check(err: int, name: str) -> None:
                            f"({torch.cuda.get_device_name()})")
 
 
-def _raw_stream_of(device):
-    """A function that returns the current stream's handle on ``device``,
-    an int for ctypes. The public ``torch.cuda.current_stream`` builds a
-    ``Stream`` object on every call, several times the cost of the one
-    lookup that a launch needs; torch's own generated code reads the handle
-    the same way."""
-    device = torch.device(device)
-    index = (device.index if device.index is not None
-             else torch.cuda.current_device())
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if raw is None:
-        return lambda: torch.cuda.current_stream(index).cuda_stream
-    return lambda: raw(index)
+#: per CUDA device: its index and the function that returns its current
+#: stream's handle (:func:`_device_stream`), made once
+_devices: dict = {}
+
+
+def _device_stream(device):
+    """``(index, stream)`` of CUDA ``device``: its index and a function
+    that returns its current stream's handle, an int for ctypes. The
+    public ``torch.cuda.current_stream`` builds a ``Stream`` object on
+    every call, several times the cost of the one lookup that a launch
+    needs; torch's own generated code reads the handle the same way."""
+    entry = _devices.get(device)
+    if entry is None:
+        d = torch.device(device)
+        index = d.index if d.index is not None else torch.cuda.current_device()
+        raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+        if raw is None:
+            def stream():
+                return torch.cuda.current_stream(index).cuda_stream
+        else:
+            def stream():
+                return raw(index)
+        entry = _devices[device] = (index, stream)
+    return entry
 
 
 def _route(t: torch.Tensor) -> str:
@@ -471,10 +501,7 @@ class PBElement:
         l_b, c0, cyl, pi = self.params
         E, q, n = self.E, self.q, self.n
         coef, two_pi, cyl = 8.0 * pi * l_b * c0, 2.0 * pi, int(cyl)
-        index = self.device.index
-        if index is None:
-            index = torch.cuda.current_device()
-        raw_stream = _raw_stream_of(self.device)
+        index, raw_stream = _device_stream(self.device)
 
         def call(ue, r, A, out, design):
             return fn(ue, shape, gradphi, qw, qy, r, A, E, q, n, coef, cyl,
@@ -667,10 +694,7 @@ class ElementSpmv:
         dofmap, offsets, entries = (t.dofmap.data_ptr(), t.offsets.data_ptr(),
                                     t.entries.data_ptr())
         n, ndof = self.n, self.ndof
-        index = self.device.index
-        if index is None:
-            index = torch.cuda.current_device()
-        raw_stream = _raw_stream_of(self.device)
+        index, raw_stream = _device_stream(self.device)
 
         def call(x, y, S):
             return fn(blocks, a_stride, x, mask, y, dofmap, offsets, entries,
@@ -703,3 +727,164 @@ class ElementSpmv:
             _check(err, "element_spmv")
             launches["element_spmv"] += 1
             return y
+
+
+# ---------------------------------------------------------------------------
+# The CG iteration's updates and convergence flag (csrc/cg_update.cu)
+# ---------------------------------------------------------------------------
+
+def _bind_cg(lib):
+    """Argument types of ``csrc/cg_update.cu``'s C interface."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.cg_update_f64.argtypes = [p, p, p, p, p, p, i, ll, i, p]
+    lib.cg_direction_f64.argtypes = [p, p, p, p, i, ll, i, p]
+    lib.krylov_unconverged_f64.argtypes = [p, p, p, i, i, p]
+    for fn in (lib.cg_update_f64, lib.cg_direction_f64,
+               lib.krylov_unconverged_f64):
+        fn.restype = i
+    return lib
+
+
+def nonzero_or_one(v):
+    """``v`` with 1 where it is 0: the divisor the Krylov solvers take."""
+    return torch.where(v == 0.0, 1.0, v)
+
+
+def cg_update_plain(x, r, p, Ap, pAp, rz) -> None:
+    alpha = rz / nonzero_or_one(pAp)
+    x.add_(alpha * p)
+    r.sub_(alpha * Ap)
+
+
+def cg_direction_plain(p, z, rz_new, rz) -> None:
+    p.mul_(rz_new / nonzero_or_one(rz)).add_(z)
+
+
+def krylov_unconverged_plain(ss, tol):
+    return torch.any(torch.sqrt(ss).to(tol.dtype) > tol)
+
+
+def _rows(vectors, scalars, name: str):
+    """(rows, n) of ``vectors`` (one shape, ..., n) and ``scalars`` (one
+    value a row), all contiguous f64 CUDA tensors on one device (the
+    Krylov solvers' vectors are f64); raises otherwise."""
+    v0 = vectors[0]
+    n = v0.shape[-1] if v0.ndim else 1
+    rows = v0.numel() // max(n, 1)
+    every = (*vectors, *scalars)
+    if not all(t.is_cuda and t.dtype == torch.float64
+               and t.device == v0.device and t.is_contiguous()
+               for t in every) or any(
+            t.shape != v0.shape for t in vectors) or any(
+            t.numel() != rows for t in scalars):
+        raise ValueError(
+            f"{name} takes vectors of one shape and a value a row, "
+            f"contiguous f64 on one CUDA device; got "
+            f"{[(tuple(t.shape), t.dtype, str(t.device)) for t in every]}")
+    return rows, n
+
+
+def cg_update(x, r, p, Ap, pAp, rz) -> None:
+    """CG's step along p in place: x += alpha p and r -= alpha Ap with
+    alpha = rz / pAp a system (1 where pAp is 0); x, r, p, Ap (..., n),
+    pAp and rz one value a system. CUDA tensors launch
+    ``csrc/cg_update.cu``, CPU tensors take the torch operations."""
+    if _route(x) == "cpu":
+        return cg_update_plain(x, r, p, Ap, pAp, rz)
+    p, Ap, pAp, rz = (v.contiguous() for v in (p, Ap, pAp, rz))
+    rows, n = _rows((x, r, p, Ap), (pAp, rz), "cg_update")
+    index, stream = _device_stream(x.device)
+    with span("kernels.cg_update", s=rows, n=n):
+        _check(_library().cg_update_f64(
+            x.data_ptr(), r.data_ptr(), p.data_ptr(), Ap.data_ptr(),
+            pAp.data_ptr(), rz.data_ptr(), rows, n, index, stream()),
+            "cg_update")
+        launches["cg_update"] += 1
+
+
+def cg_direction(p, z, rz_new, rz) -> None:
+    """CG's new direction in place: p = p beta + z with beta = rz_new / rz
+    a system (1 where rz is 0). Routed as :func:`cg_update`."""
+    if _route(p) == "cpu":
+        return cg_direction_plain(p, z, rz_new, rz)
+    z, rz_new, rz = (v.contiguous() for v in (z, rz_new, rz))
+    rows, n = _rows((p, z), (rz_new, rz), "cg_direction")
+    index, stream = _device_stream(p.device)
+    with span("kernels.cg_direction", s=rows, n=n):
+        _check(_library().cg_direction_f64(
+            p.data_ptr(), z.data_ptr(), rz_new.data_ptr(), rz.data_ptr(),
+            rows, n, index, stream()), "cg_direction")
+        launches["cg_direction"] += 1
+
+
+def krylov_unconverged(ss, tol):
+    """The device flag "some system's norm is above its tolerance": the
+    norms sqrt(ss) of the squared norms ``ss`` against ``tol`` (one value
+    a system each). Routed as :func:`cg_update`; the flag is a new 0-dim
+    bool tensor."""
+    if _route(tol) == "cpu":
+        return krylov_unconverged_plain(ss, tol)
+    ss, tol = ss.contiguous(), tol.contiguous()
+    rows, _ = _rows((ss, tol), (), "krylov_unconverged")
+    index, stream = _device_stream(tol.device)
+    flag = torch.empty((), dtype=torch.bool, device=tol.device)
+    with span("kernels.krylov_unconverged", s=rows):
+        _check(_library().krylov_unconverged_f64(
+            ss.data_ptr(), tol.data_ptr(), flag.data_ptr(), rows, index,
+            stream()), "krylov_unconverged")
+        launches["krylov_unconverged"] += 1
+    return flag
+
+
+# ---------------------------------------------------------------------------
+# The graphed Krylov loop (csrc/krylov_loop.cu)
+# ---------------------------------------------------------------------------
+
+def _bind_loop(lib):
+    """Argument types of ``csrc/krylov_loop.cu``'s C interface."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.krylov_loop_create.argtypes = [p, p, p, i, ctypes.POINTER(p)]
+    lib.krylov_loop_create.restype = i
+    lib.krylov_loop_launch.argtypes = [p, p]
+    lib.krylov_loop_launch.restype = i
+    lib.krylov_loop_destroy.argtypes = [p]
+    lib.krylov_loop_destroy.restype = None
+    return lib
+
+
+class GraphLoop:
+    """``graph``, a ``torch.cuda.CUDAGraph`` captured with ``keep_graph``
+    and not instantiated, as the body of a device-side while loop:
+    ``run(n)`` launches it on the current stream to run until the bool
+    ``flag`` it writes reads False or ``n`` times (n >= 1), and returns,
+    after one read, the iterations it ran and the flag's last value. The
+    loop keeps ``graph`` (and so the memory its capture holds) until
+    :meth:`free`."""
+
+    def __init__(self, graph, flag):
+        if not (flag.is_cuda and flag.dtype == torch.bool
+                and flag.numel() == 1):
+            raise ValueError(f"the loop's flag must be one CUDA bool, got "
+                             f"{tuple(flag.shape)} {flag.dtype} on "
+                             f"{flag.device}")
+        self._lib = _library()
+        self._graph, self._flag = graph, flag
+        self._ctl = torch.zeros(2, dtype=torch.int32, device=flag.device)
+        index, self._stream = _device_stream(flag.device)
+        handle = ctypes.c_void_p()
+        _check(self._lib.krylov_loop_create(
+            graph.raw_cuda_graph(), flag.data_ptr(), self._ctl.data_ptr(),
+            index, ctypes.byref(handle)), "krylov_loop_create")
+        self._handle = handle
+
+    def run(self, n: int):
+        self._ctl.fill_(n)
+        _check(self._lib.krylov_loop_launch(self._handle, self._stream()),
+               "krylov_loop_launch")
+        left, more = host_copy(self._ctl).tolist()
+        return n - left, bool(more)
+
+    def free(self) -> None:
+        if self._handle is not None:
+            self._lib.krylov_loop_destroy(self._handle)
+        self._handle = self._graph = self._flag = None

@@ -2,8 +2,9 @@
 
 The reference runs each solver as one ``lax.while_loop``; here it is a
 Python loop whose convergence test reads the residual norm on the host
-(one device sync per iteration, through ``utils.profiling.host_read`` —
-logged in ROADMAP as the first performance target). Each solve is a
+(through ``utils.profiling``'s ``host_read`` and ``host_copy``): once an
+iteration in the eager loop, once a run of iterations in the graphed one
+(below). Each solve is a
 ``krylov.cg`` or ``krylov.bicgstab`` span with its ``iterations`` and
 ``converged``.
 
@@ -17,11 +18,13 @@ the processes (``DistContext.allreduce_sum``), so that every process tests
 convergence on the same number and takes the same branch. None: the
 vectors are whole here.
 
-Both solvers on request replay their iteration as a CUDA graph
-(``graph``): one launch an iteration in place of the ~50 (CG under AMG) or
-~110 (BiCGSTAB under two-level RAS) of the operator, the preconditioner
-and the updates, so the loop waits on the card and not on the host's
-launches. ``graph_counts`` says how often that engaged.
+Both solvers on request run their iteration as a CUDA graph
+(``graph``), in place of the ~50 (CG under AMG) or ~110 (BiCGSTAB under
+two-level RAS) launches of the operator, the preconditioner and the
+updates: the iteration is captured once a solve and run as the body of a
+device-side while loop (``kernels.GraphLoop``), one launch and one read a
+segment of iterations, so the card runs from one read to the next without
+waiting on the host. ``graph_counts`` says how often that engaged.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from typing import Any, Callable
 import torch
 
 from ..operators import kernels as K
+from ..operators.kernels import nonzero_or_one as _nz
 from ..utils.profiling import host_read, is_recording, span
 
 Op = Callable[[torch.Tensor], torch.Tensor]
@@ -59,13 +63,10 @@ def _dot(a, b, reduce=None):
     return _sum(a * b, reduce).to(a.dtype)
 
 
-def _nz(x):
-    return torch.where(x == 0.0, 1.0, x)
-
-
 def _unconverged(r, tol, reduce):
-    """The device flag "some system's residual is above its tolerance"."""
-    return torch.any(_norm(r, reduce) > tol)
+    """The device flag "some system's residual is above its tolerance"
+    (``kernels.krylov_unconverged``: one launch on the card)."""
+    return K.krylov_unconverged(_sum(r * r, reduce), tol)
 
 
 def _result(x, r, k, norm0, reduction, reduce) -> KrylovResult:
@@ -88,12 +89,13 @@ def cg(op: Op, b, x0, precond: Op | None = None, reduction: float = 1e-8,
     0 (the default): never, as the reference.
 
     ``graph``: on a CUDA device, with whole vectors (``reduce`` None) and
-    outside ``recording()`` (whose spans are per apply), the second
-    iteration is captured as a CUDA graph and every later one, but a
-    restart, replays it. The iteration updates x, r, p and rz in place, so
-    a replay runs the eager iteration's kernels on the same buffers: the
-    same bits and the same count. ``op`` and ``precond`` must then launch
-    on the current stream without a host sync."""
+    outside ``recording()`` (whose spans are per apply), the iteration is
+    captured as a CUDA graph and every iteration after the first, but a
+    restart, runs it in a device-side loop (:func:`_iterate`). The
+    iteration updates x, r, p and rz in place, so the loop runs the eager
+    iteration's kernels on the same buffers: the same bits and the same
+    count. ``op`` and ``precond`` must then launch on the current stream
+    without a host sync."""
     with span("krylov.cg") as sp:
         M = precond if precond is not None else (lambda r: r)
         r = b - op(x0)
@@ -105,13 +107,11 @@ def cg(op: Op, b, x0, precond: Op | None = None, reduction: float = 1e-8,
         def step(keep: bool = True):
             """One iteration in place; the device flag "not converged"."""
             Ap = op(p)
-            alpha = rz / _nz(_dot(p, Ap, reduce))
-            x.add_(alpha * p)
-            r.sub_(alpha * Ap)
+            K.cg_update(x, r, p, Ap, _dot(p, Ap, reduce), rz)
             z = M(r)
             rz_new = _dot(r, z, reduce)
             if keep:
-                p.mul_(rz_new / _nz(rz)).add_(z)
+                K.cg_direction(p, z, rz_new, rz)
             else:
                 p.copy_(z)
             rz.copy_(rz_new)
@@ -126,14 +126,15 @@ def cg(op: Op, b, x0, precond: Op | None = None, reduction: float = 1e-8,
 
 #: how often the solvers' CUDA graphs engaged since the process began:
 #: ``captures`` (one a solve that reaches its second iteration on the
-#: graphed path) and ``replays`` (one an iteration after it); counted
-#: always, as ``kernels.launches``, since inside ``recording()`` no graph
-#: is made
-graph_counts = {"captures": 0, "replays": 0}
+#: graphed path), ``loops`` (the captured graph's launches as a device-side
+#: loop, one a segment of iterations between restarts) and ``replays``
+#: (the iterations those loops ran); counted always, as
+#: ``kernels.launches``, since inside ``recording()`` no graph is made
+graph_counts = {"captures": 0, "replays": 0, "loops": 0}
 
 
 def _graphed(graph: bool, r, reduce):
-    """The device to replay the iteration on as a CUDA graph, or None: the
+    """The device to run the iteration on as a CUDA graph, or None: the
     graph asked for, ``r`` on a CUDA device, whole vectors (``reduce``
     None) and no ``recording()`` open (its spans are per apply)."""
     if graph and r.is_cuda and reduce is None and not is_recording():
@@ -141,55 +142,82 @@ def _graphed(graph: bool, r, reduce):
     return None
 
 
+def _segment(k: int, maxiter: int, restart: int = 0, graphed: bool = True):
+    """What :func:`_iterate` runs after ``k`` < ``maxiter`` iterations of
+    an unconverged solve: ``("restart", 1)`` where iteration k + 1 is a
+    restart (``restart`` > 0 and k + 1 a multiple of it), ``("eager", 1)``
+    for the first iteration or off the graphed path, else ``("loop", n)``:
+    the captured iteration up to n times, through the iteration before the
+    next restart or ``maxiter``. Expanded to the end, the eager loop's
+    sequence of kept and restarted iterations."""
+    if restart and (k + 1) % restart == 0:
+        return "restart", 1
+    if k == 0 or not graphed:
+        return "eager", 1
+    end = maxiter if not restart else min(maxiter,
+                                          (k // restart + 1) * restart - 1)
+    return "loop", end - k
+
+
 def _iterate(step, flag, maxiter: int, device, restart: int = 0) -> int:
     """Run ``step`` (one iteration in place, returning the device flag "not
     converged") from the device flag ``flag`` until a flag reads False or
-    ``maxiter`` iterations, reading one flag an iteration; the number of
-    iterations. ``restart`` > 0: every ``restart``-th iteration is
-    ``step(keep=False)``. ``device`` (from :func:`_graphed`): the first
-    iteration runs eagerly, the second is captured as a CUDA graph, and
-    every later one but a restart replays it, on the same buffers: the
-    eager loop's kernels, bits and count."""
-    captured = None
+    ``maxiter`` iterations; the number of iterations. ``restart`` > 0:
+    every ``restart``-th iteration is ``step(keep=False)``.
+
+    ``device`` None: every iteration eager, one flag read after each.
+    ``device`` (from :func:`_graphed`): segments as :func:`_segment` plans
+    them. The first iteration and the restarts run eagerly, each read
+    after; the first segment of the rest captures the iteration as a CUDA
+    graph, and each such segment is one launch of it as a device-side loop
+    and one read of the iterations it ran and its last flag (at L3 under
+    AMG: a Poisson solve's ~600 iterations in one, a species stage's in
+    one a restart period). The loop runs the eager loop's kernels on the
+    same buffers in the same order, and stops where it does: the same bits
+    and count."""
+    loop = None
     k = 0
     more = host_read(flag)
     while k < maxiter and more:
-        k += 1
-        keep = not (restart and k % restart == 0)
-        if device is not None and keep and k > 1:
-            if captured is None:
-                captured = _capture(step, device)
+        kind, n = _segment(k, maxiter, restart, device is not None)
+        if kind == "loop":
+            if loop is None:
+                loop = _capture(step, device)
                 graph_counts["captures"] += 1
-            captured[0]()
-            graph_counts["replays"] += 1
-            flag = captured[1]
-        else:
-            flag = step() if keep else step(keep=False)
+            ran, more = loop(n)
+            graph_counts["loops"] += 1
+            graph_counts["replays"] += ran
+            k += ran
+            continue
+        flag = step() if kind == "eager" else step(keep=False)
+        k += 1
         if k < maxiter:
             more = host_read(flag)
     return k
 
 
 #: per CUDA device: the side stream graphs are captured on, the memory
-#: pool every capture shares, and the last graph captured (a solve's graph
-#: is never replayed after the next capture, so the pool's blocks are
-#: reused, not left behind a solve; the last graph keeps the pool open)
+#: pool every capture shares, and the last loop made (a solve's loop is
+#: never launched after the next capture, so it is freed then and the
+#: pool's blocks are reused, not left behind a solve; the last loop keeps
+#: the pool open)
 _graph_env: dict = {}
 
 
 def _capture(fn, device):
-    """``fn``'s launches captured as one CUDA graph, which nothing runs
-    yet: ``(replay, out)``, where ``out`` is what ``fn`` returned and each
-    ``replay()`` (on the current stream) rewrites. The wrappers' calls
-    while ``fn`` is captured launch nothing: ``kernels.launches`` counts
-    them at each ``replay()``, where they launch, and not at the capture."""
+    """``fn``'s launches captured as one CUDA graph and made the body of a
+    ``kernels.GraphLoop`` on the flag ``fn`` returns; nothing runs yet.
+    Returns ``run(n)``: one launch of the loop on the current stream, up
+    to n iterations, and ``(ran, more)`` after one read. The wrappers'
+    calls while ``fn`` is captured launch nothing: ``kernels.launches``
+    counts them ``ran`` times at each ``run``, and not at the capture."""
     if device not in _graph_env:
         with torch.cuda.device(device):
             _graph_env[device] = [torch.cuda.Stream(),
                                   torch.cuda.graph_pool_handle(), None]
     env = _graph_env[device]
     stream, pool = env[0], env[1]
-    g = torch.cuda.CUDAGraph()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
     before = dict(K.launches)
     stream.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(stream):
@@ -199,15 +227,18 @@ def _capture(fn, device):
         finally:
             g.capture_end()
     torch.cuda.current_stream(device).wait_stream(stream)
-    env[2] = g
     inside = {name: n - before[name] for name, n in K.launches.items()}
     K.launches.update(before)
+    if env[2] is not None:
+        env[2].free()
+    loop = env[2] = K.GraphLoop(g, out)
 
-    def replay():
-        g.replay()
-        for name, n in inside.items():
-            K.launches[name] += n
-    return replay, out
+    def run(n: int):
+        ran, more = loop.run(n)
+        for name, c in inside.items():
+            K.launches[name] += c * ran
+        return ran, more
+    return run
 
 
 def bicgstab(op: Op, b, x0, precond: Op | None = None,
@@ -217,8 +248,8 @@ def bicgstab(op: Op, b, x0, precond: Op | None = None,
 
     The iteration updates x, r, p, v, s and the scalars rho, alpha and
     omega in place (r-hat is a copy of the first residual), so that with
-    ``graph`` it is captured and replayed as ``cg``'s is, on the same
-    conditions; the same bits and count as the eager loop."""
+    ``graph`` it is captured and run in a device-side loop as ``cg``'s is,
+    on the same conditions; the same bits and count as the eager loop."""
     with span("krylov.bicgstab") as sp:
         M = precond if precond is not None else (lambda r: r)
         r = b - op(x0)

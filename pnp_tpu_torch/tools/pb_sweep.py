@@ -159,7 +159,7 @@ def call_parts(plan, ue) -> None:
             torch.empty((E, n, n), dtype=ue.dtype, device=ue.device)),
         "two new_empty": lambda: (ue.new_empty((E, n)),
                                   ue.new_empty((E, n, n))),
-        "stream lookup": K._raw_stream_of(ue.device),
+        "stream lookup": K._device_stream(ue.device)[1],
         "the C call (launch included)": lambda: plan._call(
             ue.data_ptr(), r.data_ptr(), A.data_ptr(), 3, design),
     }
@@ -338,7 +338,7 @@ def sweep_case(case, dev, lib) -> bool:
     t = event_ms(lambda: K.pb_residual_jacobian(ue, *tabs, *params))
     print(f"E={E}: checked pb_residual_jacobian, both: {show(t)}")
     blocks = -(-E // (SETTLED[2] // SETTLED[0]))
-    raw_stream = K._raw_stream_of(dev)
+    raw_stream = K._device_stream(dev)[1]
     t = event_ms(lambda: lib.pb_empty_launch(blocks, SETTLED[2], index,
                                              raw_stream()))
     print(f"E={E}: empty kernel through ctypes with the stream lookup: "

@@ -54,6 +54,10 @@ def permuted(N=256):
 # well-conditioned cases)
 GJ_REL_TOL = 1e-4
 
+#: the kernels every step of the production workload launches (the CG
+#: kernels run only where a solve is CG)
+STEP_KERNELS = ("gj_inverse", "pb_residual_jacobian", "element_spmv")
+
 
 @pytest.mark.parametrize("case", ["2x128", "2x300", "1x40", "2x1000",
                                   "permuted"])
@@ -247,7 +251,7 @@ def test_slice_on_card_matches_cpu(cuda):
     K.reset_launch_counts()
     a = run_instationary_pnp_from_pb(sys_, space, n_steps=1,
                                      presolve_potential=True, device=cuda)
-    assert min(K.launches.values()) > 0
+    assert min(K.launches[k] for k in STEP_KERNELS) > 0
     b = run_instationary_pnp_from_pb(sys_, space, n_steps=1,
                                      presolve_potential=True, device="cpu")
     for name in ("phi", "cp", "cm"):
@@ -291,7 +295,8 @@ def test_block_ras_step_on_card_matches_cpu(cuda, poisson_inv_threshold):
               poisson_inv_threshold=poisson_inv_threshold, **BLOCK_RAS)
     K.reset_launch_counts()
     a = run_instationary_pnp_from_pb(sys_, space, device=cuda, **kw)
-    assert min(K.launches.values()) > 0
+    assert min(K.launches[k] for k in STEP_KERNELS) > 0
+    assert K.launches["krylov_unconverged"] > 0
     b = run_instationary_pnp_from_pb(sys_, space, device="cpu", **kw)
     assert a.system.factor_kind == b.system.factor_kind == "ras"
     for x, y in ((a.species_iterations, b.species_iterations),
@@ -683,13 +688,18 @@ def test_sharded_dofmap_keeps_its_scatter(cuda):
 
 def test_cg_amg_graph_replays_the_eager_iteration(cuda):
     """CG under the two-level AMG on the card, two systems, restarted every
-    4 iterations: the solver's CUDA-graph loop gives the eager loop's
-    iteration count and bits, counts kernel 3's launches in the replays as
-    the eager loop counts them (the capture launches nothing), records one
-    capture and a replay for every later iteration but the restarts,
-    allocates at its peak no more than 4 MiB beyond the eager loop's (no
-    library workspace for the capture stream), and a third solve reserves
-    no more memory than the second (the captures share one pool)."""
+    4 iterations: the solver's CUDA-graph loop, a device-side loop a
+    segment between restarts, gives the eager loop's iteration count,
+    relative residuals and bits, counts every kernel's launches in the
+    loops as the eager loop counts them (the capture launches nothing;
+    ``cg_update`` once an iteration, ``cg_direction`` once an iteration
+    that is no restart), records
+    one capture, a loop for the first segment and one after each restart
+    that is not the last iteration, and a replay for every iteration but
+    the first and the restarts, allocates at its peak no more than 4 MiB
+    beyond the eager loop's (no library workspace for the capture stream),
+    and a third solve reserves no more memory than the second (the
+    captures share one pool)."""
     from pnp_tpu_torch.fem import assembly as FA
     from pnp_tpu_torch.operators import volume as V
     from pnp_tpu_torch.solvers import amg, krylov
@@ -714,31 +724,34 @@ def test_cg_amg_graph_replays_the_eager_iteration(cuda):
     K.build()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(cuda)
-    n0 = K.launches["element_spmv"]
+    n0 = dict(K.launches)
     eager = krylov.cg(op, b, torch.zeros_like(b),
                       amg.two_level_precond(A_el, ctx, diag), 1e-10, 2000,
                       restart=4)
-    n_eager = K.launches["element_spmv"] - n0
+    n_eager = {k: K.launches[k] - n0[k] for k in n0}
     torch.cuda.synchronize()
     peak_eager = torch.cuda.max_memory_allocated(cuda)
     torch.cuda.reset_peak_memory_stats(cuda)
     solve = LP.make_krylov_solver("CG_AMG_SSOR", 2000, amg_ctx=ctx,
                                   cg_restart=4)
     counts = dict(krylov.graph_counts)
-    n0 = K.launches["element_spmv"]
+    n0 = dict(K.launches)
     got = solve(op, b, torch.zeros_like(b), diag, 1e-10, A_el=A_el)
-    n_graph = K.launches["element_spmv"] - n0
+    n_graph = {k: K.launches[k] - n0[k] for k in n0}
     torch.cuda.synchronize()
     peak_graph = torch.cuda.max_memory_allocated(cuda)
     assert peak_graph - peak_eager < 4 * 2 ** 20, (peak_graph, peak_eager)
     assert eager.converged and eager.iterations > 8
     assert got.iterations == eager.iterations
     assert torch.equal(got.x, eager.x)
+    assert torch.equal(got.relres, eager.relres)
     assert n_graph == n_eager, (n_graph, n_eager)
     k = eager.iterations
+    assert n_eager["cg_update"] == k and n_eager["cg_direction"] == k - k // 4
     assert krylov.graph_counts == {
         "captures": counts["captures"] + 1,
-        "replays": counts["replays"] + k - 1 - k // 4}
+        "replays": counts["replays"] + k - 1 - k // 4,
+        "loops": counts["loops"] + 1 + (k - 1) // 4}
     solve(op, b, torch.zeros_like(b), diag, 1e-10, A_el=A_el)
     torch.cuda.synchronize()
     reserved = torch.cuda.memory_reserved(cuda)
@@ -753,12 +766,13 @@ def test_bicgstab_ras_graph_replays_the_eager_iteration(cuda, case):
     """BiCGSTAB under block RAS on the card: one system under two-level RAS
     with the p1 coarse level, or two systems with other blocks and masks
     under RAS. The solver's CUDA-graph loop gives the eager loop's
-    iteration count and bits, counts kernel 3's launches in the replays as
-    the eager loop counts them (the capture launches nothing), records one
-    capture and a replay for every later iteration, allocates at its peak
-    no more than cuBLAS's 32 MiB workspace for the capture stream and 4 MiB
-    beyond the eager loop's, and a third solve reserves no more memory than
-    the second (the captures share one pool)."""
+    iteration count, relative residuals and bits, counts kernel 3's
+    launches in its device-side loop as the eager loop counts them (the
+    capture launches nothing), records one capture, one loop and a replay
+    for every iteration after the first, allocates at its peak no more
+    than cuBLAS's 32 MiB workspace for the capture stream and 4 MiB beyond
+    the eager loop's, and a third solve reserves no more memory than the
+    second (the captures share one pool)."""
     from pnp_tpu_torch.fem import assembly as FA
     from pnp_tpu_torch.operators import volume as V
     from pnp_tpu_torch.solvers import block_ras as BR
@@ -815,7 +829,8 @@ def test_bicgstab_ras_graph_replays_the_eager_iteration(cuda, case):
     assert n_graph == n_eager, (n_graph, n_eager)
     assert krylov.graph_counts == {
         "captures": counts["captures"] + 1,
-        "replays": counts["replays"] + eager.iterations - 1}
+        "replays": counts["replays"] + eager.iterations - 1,
+        "loops": counts["loops"] + 1}
     krylov.bicgstab(op, b, torch.zeros_like(b), M, 1e-10, 2000, graph=True)
     torch.cuda.synchronize()
     reserved = torch.cuda.memory_reserved(cuda)
@@ -824,3 +839,134 @@ def test_bicgstab_ras_graph_replays_the_eager_iteration(cuda, case):
     torch.cuda.synchronize()
     assert torch.cuda.memory_reserved(cuda) == reserved
     assert torch.equal(again.x, eager.x)
+
+
+def _amg_pair(cuda):
+    """Two constrained Poisson systems on a 48 x 48 square under the
+    two-level AMG: the operator, its blocks, the diagonal, a right-hand
+    side and the AMG context."""
+    from pnp_tpu_torch.fem import assembly as FA
+    from pnp_tpu_torch.operators import volume as V
+    from pnp_tpu_torch.solvers import amg
+
+    space = FunctionSpace(rect_mesh(48, 48, 1.0, 1.0), 1)
+    vt = build_volume_tables(space, 2, cuda)
+    n = space.ndof
+    A = V.laplace_jacobian_el(vt)
+    A_el = torch.stack([A, 2.0 * A])
+    free = torch.ones((2, n), dtype=torch.bool, device=cuda)
+    edge = torch.as_tensor(space.bedge_dofs, device=cuda).unique()
+    free[0, edge] = False
+    free[1, edge[::2]] = False
+    op = FA.make_constrained_operator(A_el, vt.dofmap, n, free)
+    diag = torch.where(free, FA.scatter_add_batched(torch.diagonal(
+        A_el, dim1=-2, dim2=-1), vt.dofmap, n), 1.0)
+    t = torch.arange(n, dtype=torch.float64, device=cuda)
+    b = torch.stack([torch.sin(t), torch.cos(0.5 * t)]) * free
+    ctx = amg.make_amg_context(vt.dofmap, n, free, 64,
+                               dof_coords=space.dof_coords)
+    return op, A_el, diag, b, ctx
+
+
+@pytest.mark.parametrize("solver", ["cg", "bicgstab"])
+def test_graph_loop_stops_at_maxiter(cuda, solver):
+    """A graphed solve whose ``maxiter`` falls inside a device-side loop
+    (CG under the two-level AMG restarted every 4, stopped after 10
+    iterations: loops over 2-3, 5-7 and 9-10; BiCGSTAB under the same
+    preconditioner, stopped after 6: one loop over 2-6) stops where the
+    eager loop stops: ``iterations == maxiter``, not converged, the same
+    relative residuals and bits."""
+    from pnp_tpu_torch.solvers import amg, krylov
+
+    op, A_el, diag, b, ctx = _amg_pair(cuda)
+    K.build()
+    M = amg.two_level_precond(A_el, ctx, diag)
+    if solver == "cg":
+        maxiter, loops = 10, 3
+
+        def solve(graph):
+            return krylov.cg(op, b, torch.zeros_like(b), M, 1e-14, maxiter,
+                             restart=4, graph=graph)
+    else:
+        maxiter, loops = 6, 1
+
+        def solve(graph):
+            return krylov.bicgstab(op, b, torch.zeros_like(b), M, 1e-14,
+                                   maxiter, graph=graph)
+    eager = solve(False)
+    counts = dict(krylov.graph_counts)
+    got = solve(True)
+    assert eager.iterations == got.iterations == maxiter
+    assert not eager.converged and not got.converged
+    assert torch.equal(got.relres, eager.relres)
+    assert torch.equal(got.x, eager.x)
+    assert krylov.graph_counts["captures"] == counts["captures"] + 1
+    assert krylov.graph_counts["loops"] == counts["loops"] + loops
+
+
+def test_graph_loop_frees_the_last_one_at_the_next_capture(cuda):
+    """Each graphed solve captures anew and frees the loop the solve
+    before made (its graphs and the memory of its capture go back to the
+    shared pool): over five solves of one system the earlier loops hold
+    no handle, the last one does, each solve gives the first one's bits,
+    and the memory reserved after the second solve stays as it is."""
+    from pnp_tpu_torch.solvers import amg, krylov
+
+    op, A_el, diag, b, ctx = _amg_pair(cuda)
+    K.build()
+    M = amg.two_level_precond(A_el, ctx, diag)
+
+    def solve():
+        return krylov.cg(op, b, torch.zeros_like(b), M, 1e-10, 2000,
+                         restart=4, graph=True)
+
+    first = solve()
+    env = krylov._graph_env[b.device]
+    made, reserved = [env[2]], []
+    for _ in range(4):
+        again = solve()
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved(cuda))
+        made.append(env[2])
+        assert torch.equal(again.x, first.x)
+    assert len({id(loop) for loop in made}) == len(made)
+    assert all(loop._handle is None for loop in made[:-1])
+    assert made[-1]._handle is not None
+    assert reserved == [reserved[0]] * len(reserved), reserved
+
+
+@pytest.mark.parametrize("rows", [1, 2])
+def test_cg_update_kernels_give_the_torch_operations_bits(cuda, rows):
+    """``csrc/cg_update.cu`` on the card against the torch operations it
+    replaces, run on the same CUDA tensors, bit for bit: cg_update and
+    cg_direction over 189,697 values a row (a zero where a divisor is
+    taken), the flag both ways; one launch each, counted."""
+    n = 189_697
+    g = torch.Generator(device=cuda).manual_seed(rows)
+
+    def rand(shape):
+        return torch.randn(shape, generator=g, dtype=torch.float64,
+                           device=cuda)
+
+    x, r, p, Ap, z = (rand((rows, n)) for _ in range(5))
+    pAp, rz, rz_new = (rand((rows, 1)) for _ in range(3))
+    pAp[0], rz[-1] = 0.0, 0.0
+    want = [v.clone() for v in (x, r, p)]
+    K.cg_update_plain(want[0], want[1], p, Ap, pAp, rz)
+    K.cg_direction_plain(want[2], z, rz_new, rz)
+    counts = dict(K.launches)
+    K.cg_update(x, r, p, Ap, pAp, rz)
+    K.cg_direction(p, z, rz_new, rz)
+    assert torch.equal(x, want[0]) and torch.equal(r, want[1])
+    assert torch.equal(p, want[2])
+    ss = (r.double() ** 2).sum(-1, keepdim=True)
+    for scale in (0.5, 2.0):
+        tol = torch.sqrt(ss) * scale
+        tol[0] = torch.sqrt(ss[0])
+        flag = K.krylov_unconverged(ss, tol)
+        assert flag.dtype == torch.bool and flag.shape == ()
+        assert bool(flag) == bool(K.krylov_unconverged_plain(ss, tol)) \
+            == (scale < 1.0 and rows > 1)
+    assert {k: K.launches[k] - counts[k] for k in counts} == {
+        **{k: 0 for k in counts}, "cg_update": 1, "cg_direction": 1,
+        "krylov_unconverged": 2}

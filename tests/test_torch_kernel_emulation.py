@@ -1,5 +1,7 @@
-"""Both kernels' CUDA sources (``pnp_tpu_torch/csrc/gj_inverse.cu``,
-``csrc/pb_element.cu``) compiled as plain C++ against
+"""The kernels' CUDA sources (``pnp_tpu_torch/csrc/gj_inverse.cu``,
+``csrc/pb_element.cu``, ``csrc/element_spmv.cu``, ``csrc/cg_update.cu``;
+not ``csrc/krylov_loop.cu``, which builds CUDA graphs) compiled as plain
+C++ against
 ``csrc/emulation/cuda_runtime.h`` and run on the host: one std::thread per
 CUDA thread, barriers for ``__syncthreads`` and the warp shuffles. This
 checks the sources' index arithmetic, synchronisation, masking and scratch
@@ -454,3 +456,55 @@ def test_spmv_source_rejects_bad_plans(emulated_spmv):
             A.ctypes.data, 0, x.ctypes.data, None, y.ctypes.data, *ptrs, S,
             3, n, 0, None)
         assert err != 0, (S, n)
+
+
+# --- the CG iteration's updates and flag ------------------------------------
+
+@pytest.fixture(scope="module")
+def emulated_cg(tmp_path_factory):
+    """``csrc/cg_update.cu`` as a host library, bound like the real one."""
+    return K._bind_cg(host_library(tmp_path_factory, "cg_update.cu",
+                                   "-DCG_HOST_EMULATION"))
+
+
+def _ptr(t):
+    return t.data_ptr()
+
+
+@pytest.mark.parametrize("rows", [1, 2])
+def test_cg_updates_give_the_torch_operations_bits(emulated_cg, rows):
+    """The source's cg_update, cg_direction and krylov_unconverged against
+    the torch operations they replace (``kernels.*_plain``), bit for bit,
+    over 300 values a row (a ragged second block), with a zero where a
+    divisor is taken (the 1 it stands for) and the flag both ways."""
+    n = 300
+    g = torch.Generator().manual_seed(rows)
+
+    def vec():
+        return torch.randn((rows, n), generator=g, dtype=torch.float64)
+
+    def scal():
+        return torch.randn((rows, 1), generator=g, dtype=torch.float64)
+
+    x, r, p, Ap, z = vec(), vec(), vec(), vec(), vec()
+    pAp, rz, rz_new = scal(), scal(), scal()
+    pAp[0], rz[-1] = 0.0, 0.0
+    want = [v.clone() for v in (x, r, p)]
+    K.cg_update_plain(want[0], want[1], p, Ap, pAp, rz)
+    assert emulated_cg.cg_update_f64(
+        _ptr(x), _ptr(r), _ptr(p), _ptr(Ap), _ptr(pAp), _ptr(rz), rows, n, 0,
+        None) == 0
+    assert torch.equal(x, want[0]) and torch.equal(r, want[1])
+    K.cg_direction_plain(want[2], z, rz_new, rz)
+    assert emulated_cg.cg_direction_f64(
+        _ptr(p), _ptr(z), _ptr(rz_new), _ptr(rz), rows, n, 0, None) == 0
+    assert torch.equal(p, want[2])
+    ss = (r.double() ** 2).sum(-1, keepdim=True)
+    for scale in (0.5, 2.0):
+        tol = torch.sqrt(ss) * scale
+        tol[0] = torch.sqrt(ss[0])               # equal: not above
+        flag = torch.zeros((), dtype=torch.bool)
+        assert emulated_cg.krylov_unconverged_f64(
+            _ptr(ss), _ptr(tol), _ptr(flag), rows, 0, None) == 0
+        assert bool(flag) == bool(K.krylov_unconverged_plain(ss, tol)) \
+            == (scale < 1.0 and rows > 1)

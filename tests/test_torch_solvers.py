@@ -224,6 +224,71 @@ def test_bicgstab_in_place_gives_the_out_of_place_bits(ras_systems, batched,
     assert want_k == maxiter if stop == "maxiter" else 3 < want_k < maxiter
 
 
+@pytest.mark.parametrize("maxiter", [1, 2, 14, 15, 16, 31])
+@pytest.mark.parametrize("restart", [0, 4, 15])
+def test_graphed_segments_follow_the_eager_loop(monkeypatch, restart,
+                                                maxiter):
+    """The graphed loop's segment plan (``krylov._segment``), expanded to
+    ``maxiter``, is the eager loop's sequence of kept and restarted
+    iterations: the first eager, each restart eager, every run between
+    them one loop segment. Then ``krylov._iterate`` with a device-side
+    loop stood in by one that steps eagerly (``_capture`` replaced), for a
+    solve that converges after each possible iteration and one that never
+    does: the eager loop's iterations and keep/restart sequence, one
+    capture, a loop a segment, and ``replays`` the iterations the loops
+    ran."""
+    want = [not (restart and j % restart == 0) for j in range(1, maxiter + 1)]
+    got, kinds, k = [], [], 0
+    while k < maxiter:
+        kind, n = TK._segment(k, maxiter, restart)
+        assert n >= 1 and k + n <= maxiter and (n == 1 or kind == "loop")
+        assert (kind == "eager") == (k == 0 and want[0])
+        got += [kind != "restart"] * n
+        kinds.append(kind)
+        k += n
+    assert got == want
+    assert all(a != "loop" or b == "restart"
+               for a, b in zip(kinds, kinds[1:]))
+    assert [TK._segment(j, maxiter, restart, graphed=False)[0]
+            for j in range(maxiter)] == [
+        "eager" if keep else "restart" for keep in want]
+
+    def solve(device, stop):
+        """The keep flags of each iteration and the count; ``stop``: the
+        iteration whose flag first reads False."""
+        seen = []
+
+        def step(keep=True):
+            seen.append(keep)
+            return torch.tensor(len(seen) < stop)
+
+        def capture(fn, dev):
+            assert fn is step and dev == device
+
+            def run(n):
+                for ran in range(1, n + 1):
+                    if not fn().item():
+                        return ran, False
+                return n, True
+            return run
+
+        monkeypatch.setattr(TK, "_capture", capture)
+        return seen, TK._iterate(step, torch.tensor(True), maxiter, device,
+                                 restart)
+
+    for stop in range(1, maxiter + 2):
+        seen, k = solve(None, stop)
+        assert k == min(stop, maxiter) and seen == want[:k]
+        before = dict(TK.graph_counts)
+        assert solve("loop", stop) == (seen, k)
+        loops = sum(1 for j in range(1, k + 1) if want[j - 1] and j > 1
+                    and (j == 2 or not want[j - 2]))
+        assert TK.graph_counts == {
+            "captures": before["captures"] + (loops > 0),
+            "loops": before["loops"] + loops,
+            "replays": before["replays"] + sum(want[1:k])}
+
+
 @pytest.mark.parametrize("variant", ["BCGS_SSORk", "BCGS_NOPREC",
                                      "CG_NOPREC", "CG_Jacobi",
                                      "BCGS_Jacobi"])
